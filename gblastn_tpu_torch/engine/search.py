@@ -1,0 +1,458 @@
+"""End-to-end megablast search on one device, in PyTorch.
+
+The port's counterpart of ``gblastn_tpu/engine/search.py``: the same
+host setup (query block, masks, lookup table, derived parameters), then
+the resident seeding path on the chosen device (scan, mini-extension and
+K1; engine.seeding), the host greedy prelim, hitlist collection,
+traceback and ranking. The slice covers one-hit megablast over a
+database held resident on one device; every other search shape raises
+NotImplementedError naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from gblastn_tpu.hits import (
+    HSPList,
+    HitList,
+    hitlist_update,
+    sort_by_evalue,
+    sort_hsplists_by_evalue,
+)
+from gblastn_tpu.io.fasta import FastaRecord
+from gblastn_tpu.io.query import QueryBlock, build_query_block
+from gblastn_tpu.io.seqdb import SequenceDB
+from gblastn_tpu.lut.builder import build_lookup_table, unmasked_locations
+from gblastn_tpu.params.derived import SearchParams, derive_params
+from gblastn_tpu.params.options import SearchOptions, Task
+from gblastn_tpu.stats.karlin import nucl_score_matrix
+from gblastn_tpu.traceback.stage import traceback_from_hsplist
+from gblastn_tpu.utils.profiling import slog
+from gblastn_tpu_torch.device import resolve_device
+from gblastn_tpu_torch.engine.gapped import run_gapped_prelim
+from gblastn_tpu_torch.engine.resident import resident_from_reference
+from gblastn_tpu_torch.engine.seeding import SeedingDeviceData, run_seeding
+from gblastn_tpu_torch.ops.seeding import pack_query_nibbles
+from gblastn_tpu_torch.ops.ungapped import make_table64, pack_query
+
+NEG_CLIP = -(1 << 24)
+
+
+def device_matrix16(reward: int, penalty: int) -> np.ndarray:
+    """BLASTNA x 2na score submatrix, sentinel rows clipped so int32
+    accumulation in the device X-drop walk cannot overflow."""
+    m = nucl_score_matrix(reward, penalty)[:, :4].astype(np.int64)
+    return np.clip(m, NEG_CLIP, None).astype(np.int32)
+
+
+@dataclass
+class QueryResult:
+    """Finished results for one query: HSP lists by subject, ranked."""
+
+    query_index: int
+    hsplists: list[HSPList] = field(default_factory=list)
+
+
+@dataclass
+class BlastResults:
+    qblock: QueryBlock
+    params: SearchParams
+    queries: list[QueryResult] = field(default_factory=list)
+    # per-context inclusive (from, to) masked ranges in concatenated-
+    # buffer coordinates (dust/windowmasker/lcase), or None
+    masks: list[list[tuple[int, int]]] | None = None
+
+
+@dataclass
+class PrelimResult:
+    """Handoff between the prelim stage and traceback."""
+
+    qblock: QueryBlock
+    params: SearchParams
+    hitlists: list[HitList]
+    masks: list[list[tuple[int, int]]] | None = None
+
+
+def _refuse_outside_slice(records, options: SearchOptions) -> None:
+    """NotImplementedError for every search shape this slice does not
+    port, naming the ROADMAP Queue 1 item that does."""
+    from gblastn_tpu.engine.split import chunk_size_for_task
+
+    def no(what, item):
+        raise NotImplementedError(
+            f"gblastn_tpu_torch: {what} is not ported yet "
+            f"(ROADMAP Queue 1 item {item})"
+        )
+
+    if options.task is not Task.MEGABLAST or options.template_length:
+        no(f"-task {options.task.value}", 10)
+    if options.window_size > 0:
+        no("two-hit seeding (window_size > 0)", 10)
+    if options.use_index:
+        no("-use_index", 13)
+    if options.db_soft_mask is not None or options.db_hard_mask is not None:
+        no("-db_soft_mask / -db_hard_mask", 13)
+    if options.filtering_db:
+        no("-filtering_db (repeat masking runs a nested search)", 15)
+    chunk = chunk_size_for_task(options.task.value)
+    if any(rec.length > chunk for rec in records):
+        no(f"query splitting (a query longer than {chunk} bases)", 10)
+    if int(os.environ.get("GBLASTN_TPU_SHARDS", "0") or 0) > 1:
+        no("multi-device sharding (GBLASTN_TPU_SHARDS > 1)", 14)
+    # the resident size bound is checked where the database is uploaded
+    # (engine.resident)
+
+
+@dataclass
+class BatchSetup:
+    """A query batch ready for the device seeding stage."""
+
+    qblock: QueryBlock
+    params: SearchParams
+    masks: list[list[tuple[int, int]]] | None
+    seed_dev: SeedingDeviceData
+    seed_kw: dict           # run_seeding keywords
+
+
+def setup_batch(
+    records: list[FastaRecord],
+    db: SequenceDB,
+    options: SearchOptions,
+    device: str | torch.device = "cuda",
+) -> BatchSetup:
+    """Host setup of one batch (query block, masks, lookup table, derived
+    parameters, gate data) and its upload beside the resident
+    database."""
+    dev = resolve_device(device)
+    options.validate()
+    _refuse_outside_slice(records, options)
+    with slog.time("setup.query_block"):
+        qblock = build_query_block(records, options.strand)
+    ctx_offsets = qblock.context_offsets()
+    ctx_lengths = [c.length for c in qblock.contexts]
+
+    loc_ranges = None       # per-context clamped -query_loc (a, b)
+    if options.query_loc is not None:
+        # -query_loc: statistics use the restricted range lengths
+        a0, b0 = options.query_loc
+        loc_ranges = []
+        for c in qblock.contexts:
+            a = min(max(a0, 0), c.length)
+            b = min(max(b0, a), c.length)
+            loc_ranges.append((a, b))
+        params = derive_params(
+            options, [b - a for a, b in loc_ranges],
+            db.total_length, db.num_seqs,
+        )
+    else:
+        params = derive_params(
+            options, ctx_lengths, db.total_length, db.num_seqs
+        )
+
+    masks = None
+    if options.dust:
+        from gblastn_tpu.masking.dust import query_dust_masks
+
+        with slog.time("setup.dust"):
+            masks = query_dust_masks(
+                qblock, options.dust_level, options.dust_window,
+                options.dust_linker, query_loc=options.query_loc,
+            )
+    if options.window_masker_db:
+        from gblastn_tpu.masking.winmask import (
+            WindowMaskerStats,
+            query_window_masks,
+        )
+
+        with slog.time("setup.window_masker"):
+            stats = WindowMaskerStats.load(options.window_masker_db)
+            wm_masks = query_window_masks(qblock, stats)
+        if masks is None:
+            masks = wm_masks
+        else:
+            masks = [sorted(a + b) for a, b in zip(masks, wm_masks)]
+    if options.lcase_masking:
+        from gblastn_tpu.masking.lcase import query_lcase_masks
+
+        lc_masks = query_lcase_masks(qblock, records)
+        if masks is None:
+            masks = lc_masks
+        else:
+            masks = [sorted(a + b) for a, b in zip(masks, lc_masks)]
+    if loc_ranges is not None:
+        # sentinel-fence the range: bases outside [start, stop) become
+        # sentinels, so seeding skips them and every extension stops at
+        # the range edge exactly like a context boundary
+        for c, (a, b) in zip(qblock.contexts, loc_ranges):
+            L = c.length
+            lo, hi = (a, b) if c.frame >= 0 else (L - b, L - a)
+            qblock.buffer[c.offset: c.offset + lo] = 15
+            qblock.buffer[c.offset + hi: c.offset + L] = 15
+
+    locations = unmasked_locations(qblock.buffer, ctx_offsets, masks)
+
+    if masks is not None and not options.mask_at_hash:
+        # -soft_masking false: render masked bases as N for the whole
+        # search (BlastSetUp_MaskQuery, blast_filter.c:991)
+        qblock.buffer_nomask = qblock.buffer.copy()
+        for ctx_masks in masks:
+            for a, b in ctx_masks:
+                qblock.buffer[a: b + 1] = 14
+
+    with slog.time("setup.lookup_table"):
+        lut = build_lookup_table(
+            qblock.buffer, locations, options.word_size,
+            options.lut_word_size,
+        )
+
+    n_ctx = len(qblock.contexts)
+    word_cutoffs = np.array(
+        [params.contexts[c].word_cutoff_score for c in range(n_ctx)],
+        dtype=np.int32,
+    )
+    x_dropoffs = np.array(
+        [params.contexts[c].x_dropoff_ungapped for c in range(n_ctx)],
+        dtype=np.int32,
+    )
+
+    # query buffer rounded up to whole nibble words with sentinels
+    qbuf = np.full(-(-len(qblock.buffer) // 8) * 8, 15, np.uint8)
+    qbuf[: len(qblock.buffer)] = qblock.buffer
+
+    # approximate-ungapped gate data (s_NuclUngappedExtend semantics):
+    # the replay demotes exact-passing seeds whose byte-quantized score
+    # misses the reduced cutoff, as the reference does for word >= 11
+    from gblastn_tpu.params.derived import nucl_score_table_packed
+
+    approx_ctx = {
+        "query": qbuf,
+        "concat_end": len(qblock.buffer) - 1,
+        "packed": db.packed,
+        "subject_ends": np.asarray(db.starts) + np.asarray(db.lengths),
+        "x_dropoffs": x_dropoffs,
+        "reduced": np.array(
+            [params.contexts[c].reduced_nucl_cutoff
+             for c in range(n_ctx)], np.int64,
+        ),
+        "table": nucl_score_table_packed(options.reward, options.penalty),
+    }
+
+    with slog.time("setup.subject_upload"):
+        resident = resident_from_reference(db, dev)
+    with slog.time("setup.batch_upload"):
+        q_dev = torch.from_numpy(qbuf).to(dev)
+        m16 = device_matrix16(options.reward, options.penalty)
+        positions = (
+            lut.positions if len(lut.positions) else np.zeros(1, np.int32)
+        )
+        seed_dev = SeedingDeviceData(
+            resident=resident,
+            query_packed=pack_query(q_dev),
+            query_nib=pack_query_nibbles(q_dev),
+            lut_offsets=torch.from_numpy(lut.counts_offsets).to(dev),
+            lut_positions=torch.from_numpy(positions).to(dev),
+            table64=torch.from_numpy(make_table64(m16)).to(dev),
+        )
+    seed_kw = dict(
+        word_size=lut.word_size,
+        lut_word=lut.lut_word_size,
+        scan_step=lut.scan_step,
+        subject_starts=db.starts,
+        context_offsets=ctx_offsets,
+        word_cutoffs=word_cutoffs,
+        x_dropoffs=x_dropoffs,
+        approx_ctx=approx_ctx,
+    )
+    return BatchSetup(qblock, params, masks, seed_dev, seed_kw)
+
+
+def prelim_search(
+    records: list[FastaRecord],
+    db: SequenceDB,
+    options: SearchOptions,
+    device: str | torch.device = "cuda",
+    interrupt_fn=None,
+) -> PrelimResult:
+    """Device seeding + host prelim gapped stage + hitlist collection.
+
+    ``interrupt_fn`` (optional, () -> bool) is polled at stage
+    boundaries; returning True raises SearchInterrupted."""
+    from gblastn_tpu.utils.interrupt import check
+
+    check(interrupt_fn)
+    batch = setup_batch(records, db, options, device)
+    qblock, params, masks = batch.qblock, batch.params, batch.masks
+    with slog.time("device.seeding"):
+        init = run_seeding(batch.seed_dev, **batch.seed_kw)
+    slog.diagnostics.good_init_extends += len(init)
+    check(interrupt_fn)
+
+    if options.gapped:
+        with slog.time("host.prelim_gapped"):
+            prelim_lists = run_gapped_prelim(
+                init, qblock, db.get_sequence_2na_cached, db.starts,
+                params,
+            )
+    else:
+        from gblastn_tpu.engine.ungapped import run_ungapped_prelim
+
+        with slog.time("host.prelim_ungapped"):
+            prelim_lists = run_ungapped_prelim(
+                init, qblock, db.starts, db.lengths, params
+            )
+    slog.diagnostics.good_gapped += sum(len(l.hsps) for l in prelim_lists)
+
+    # split per-subject lists by query and collect per-query hitlists;
+    # the best-hit / culling writers replace the default collector when
+    # configured (hspfilter_besthit.c / hspfilter_culling.c)
+    hitlist_size = options.max_target_seqs or options.hitlist_size
+    hitlists = [
+        HitList(hitlist_size=hitlist_size) for _ in range(qblock.num_queries)
+    ]
+    besthit = culling = None
+    if options.best_hit_overhang > 0 or options.best_hit_score_edge > 0:
+        from gblastn_tpu.hspfilters import BestHitWriter
+
+        besthit = BestHitWriter(
+            qblock.num_queries,
+            options.best_hit_overhang or 0.1,
+            options.best_hit_score_edge or 0.1,
+        )
+    elif options.culling_limit > 0:
+        from gblastn_tpu.hspfilters import CullingWriter
+
+        culling = CullingWriter(len(qblock.contexts), options.culling_limit)
+
+    with slog.time("host.collect"):
+        if besthit is not None or culling is not None:
+            from gblastn_tpu.hits import sort_by_score
+
+            writer = besthit if besthit is not None else culling
+            for lst in prelim_lists:
+                by_query: dict[int, HSPList] = {}
+                for h in lst.hsps:
+                    qi = qblock.contexts[h.context].query_index
+                    by_query.setdefault(
+                        qi, HSPList(oid=lst.oid)
+                    ).hsps.append(h)
+                for sub in by_query.values():
+                    writer.add_hsplist(sub, qblock)
+            for qi in range(qblock.num_queries):
+                if besthit is not None:
+                    kept = besthit.export(qi)
+                else:
+                    kept = culling.export_query(qblock, qi)
+                for sub in kept:
+                    sort_by_score(sub.hsps)
+                    hitlist_update(hitlists[qi], sub)
+        else:
+            for lst in prelim_lists:
+                by_query = {}
+                for h in lst.hsps:
+                    qi = qblock.contexts[h.context].query_index
+                    by_query.setdefault(
+                        qi, HSPList(oid=lst.oid)
+                    ).hsps.append(h)
+                for qi, sub in by_query.items():
+                    hitlist_update(hitlists[qi], sub)
+
+    return PrelimResult(qblock=qblock, params=params, hitlists=hitlists,
+                        masks=masks)
+
+
+def finish_search(
+    prelim: PrelimResult,
+    db: SequenceDB,
+    options: SearchOptions,
+    interrupt_fn=None,
+) -> BlastResults:
+    """Traceback + final ranking over a prelim result (host only)."""
+    from gblastn_tpu.utils.interrupt import check
+
+    qblock = prelim.qblock
+    params = prelim.params
+    hitlists = prelim.hitlists
+    hitlist_size = options.max_target_seqs or options.hitlist_size
+
+    matrix = nucl_score_matrix(options.reward, options.penalty)
+    results = BlastResults(qblock=qblock, params=params,
+                           masks=prelim.masks)
+    subj_cache: dict[int, np.ndarray] = {}
+
+    def _finish_one(lst):
+        if options.gapped:
+            traceback_from_hsplist(
+                lst, qblock, subj_cache[lst.oid], matrix, params
+            )
+        else:
+            from gblastn_tpu.engine.ungapped import (
+                finish_ungapped_hsplist,
+            )
+
+            finish_ungapped_hsplist(
+                lst, qblock, subj_cache[lst.oid], matrix,
+                params, int(db.lengths[lst.oid]),
+            )
+
+    nthreads = max(int(getattr(options, "num_threads", 1) or 1), 1)
+    with slog.time("host.traceback"):
+        if nthreads > 1:
+            # -num_threads: per-HSPList traceback fan-out; the native
+            # aligners release the GIL inside each ctypes call, and each
+            # task mutates only its own HSPList. Subjects prefetch
+            # serially first (the cache dict is not thread-safe).
+            from concurrent.futures import ThreadPoolExecutor
+
+            all_lists = []
+            for hl in hitlists:
+                for lst in hl.hsplists:
+                    if lst.oid not in subj_cache:
+                        subj_cache[lst.oid] = (
+                            db.get_sequence_blastna_cached(lst.oid)
+                        )
+                    all_lists.append(lst)
+            check(interrupt_fn)
+            with ThreadPoolExecutor(max_workers=nthreads) as pool:
+                list(pool.map(_finish_one, all_lists))
+        for qi, hl in enumerate(hitlists):
+            check(interrupt_fn)
+            qres = QueryResult(query_index=qi)
+            for lst in hl.hsplists:
+                if nthreads <= 1:
+                    if lst.oid not in subj_cache:
+                        subj_cache[lst.oid] = (
+                            db.get_sequence_blastna_cached(lst.oid)
+                        )
+                    _finish_one(lst)
+                if lst.hsps:
+                    qres.hsplists.append(lst)
+            # final ranking (Blast_HSPResultsSortByEvalue)
+            for lst in qres.hsplists:
+                sort_by_evalue(lst.hsps)
+                lst.best_evalue = min(h.evalue for h in lst.hsps)
+            sort_hsplists_by_evalue(qres.hsplists)
+            del qres.hsplists[hitlist_size:]
+            slog.diagnostics.final_hsps += sum(
+                len(l.hsps) for l in qres.hsplists
+            )
+            results.queries.append(qres)
+    return results
+
+
+def search(
+    records: list[FastaRecord],
+    db: SequenceDB,
+    options: SearchOptions,
+    device: str | torch.device = "cuda",
+    interrupt_fn=None,
+) -> BlastResults:
+    """Run a complete gapped megablast search end to end on ``device``
+    ("cuda" or "cpu"; "cuda" without a card raises)."""
+    return finish_search(
+        prelim_search(records, db, options, device, interrupt_fn),
+        db, options, interrupt_fn,
+    )

@@ -1,0 +1,355 @@
+"""Host orchestration of the device seeding stage (one-hit megablast).
+
+The port's counterpart of ``gblastn_tpu/engine/seeding.py`` on the main
+path: scan + mini-extension on the device (ops.seeding), K1 on every
+mini-extension survivor (ops.ungapped), one device-to-host fetch, then the
+host one-hit diagonal replay with the approximate-ungapped gate,
+reproducing ``s_BlastnDiagTableExtendInitialHit`` (NCBI
+na_ungapped.c:612-755) for window_size == 0.
+
+Sizes are exact, so the JAX package's capacity buckets and retries have
+no counterpart here. K1 has no window and returns exact extensions, so
+there is no phase-0 clamp and no phase-2 escalation either; both were
+exact in the JAX package, so removing them changes no result.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gblastn_tpu.utils.profiling import slog
+from gblastn_tpu_torch.engine.resident import ResidentDB
+from gblastn_tpu_torch.ops.seeding import seeding_scan_mini
+from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+
+
+@dataclass
+class InitHits:
+    """Saved initial hits (BlastInitHitList analog), sorted by score order."""
+
+    q_off: np.ndarray      # seed offsets (mini-extended starts)
+    s_off: np.ndarray
+    q_start: np.ndarray    # ungapped extension data
+    s_start: np.ndarray
+    length: np.ndarray
+    score: np.ndarray
+    context: np.ndarray    # query context per hit
+    oid: np.ndarray        # subject id per hit
+
+    def __len__(self) -> int:
+        return len(self.q_off)
+
+
+@dataclass
+class SeedingDeviceData:
+    """One batch's device inputs beside the resident database."""
+
+    resident: ResidentDB
+    query_packed: torch.Tensor   # uint8[Q] K1 query bytes (mask | deg << 4)
+    query_nib: torch.Tensor      # int64[Q/8] 4na-mask nibbles
+    lut_offsets: torch.Tensor    # int32[4^w + 1] CSR offsets
+    lut_positions: torch.Tensor  # int32[P] CSR query offsets
+    table64: torch.Tensor        # int32[72] K1 score table
+
+
+def sort_by_score_order(
+    score: np.ndarray, s_start: np.ndarray, length: np.ndarray,
+    q_start: np.ndarray,
+) -> np.ndarray:
+    """Index order of score_compare_match (blast_extend.c:279)."""
+    return np.lexsort((q_start, -length, s_start, -score))
+
+
+def _native_diag_order(q_off, s_off, oid, diag_mask=0):
+    """Replay key order via native comparator sort (== np.lexsort
+    ((q_off, s_off, diag, oid)) exactly); None if the lib is absent."""
+    from gblastn_tpu.native import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(q_off)
+    q32 = np.ascontiguousarray(q_off, np.int32)
+    s32 = np.ascontiguousarray(s_off, np.int32)
+    o32 = np.ascontiguousarray(oid, np.int32)
+    order = np.empty(n, np.int64)
+    rc = lib.gblastn_diag_order(
+        q32.ctypes.data, s32.ctypes.data, o32.ctypes.data,
+        n, diag_mask, order.ctypes.data,
+    )
+    if rc != 0:   # allocation failure: fall back to np.lexsort
+        return None
+    return order
+
+
+def _native_diag_filter(
+    q_off, s_off, oid, order, word_size, window,
+    ung_s_start, ung_length, ung_score, cutoff, right_run,
+    diag_mask=0,
+):
+    """Run the native replay loop; None if the native lib is absent."""
+    from gblastn_tpu.native import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    import ctypes
+
+    def c32(a):
+        return np.ascontiguousarray(a, dtype=np.int32)
+
+    n = len(q_off)
+    saved = np.zeros(n, dtype=np.uint8)
+    q32, s32, o32 = c32(q_off), c32(s_off), c32(oid)
+    us32, ul32, sc32, cu32 = (
+        c32(ung_s_start), c32(ung_length), c32(ung_score), c32(cutoff)
+    )
+    ord64 = np.ascontiguousarray(order, dtype=np.int64)
+    rr32 = c32(right_run) if right_run is not None else None
+    lib.gblastn_diag_filter(
+        q32.ctypes.data, s32.ctypes.data, o32.ctypes.data,
+        ord64.ctypes.data, ctypes.c_int64(n),
+        ctypes.c_int64(word_size), ctypes.c_int64(window),
+        ctypes.c_int64(diag_mask),
+        us32.ctypes.data, ul32.ctypes.data,
+        sc32.ctypes.data, cu32.ctypes.data,
+        rr32.ctypes.data if rr32 is not None else None,
+        saved.ctypes.data,
+    )
+    return saved.astype(bool)
+
+
+def diag_table_mask(concat_qlen: int, window_size: int) -> int:
+    """Diagonal-key mask replicating the reference's container choice:
+    blastn-family searches with concatenated query length > 8000 use the
+    exact eDiagHash container (mask 0 here = exact diagonals); smaller
+    ones use the pow2 eDiagArray whose masked indexing ALIASES diagonals
+    that differ by diag_array_length (BlastExtendWordNew,
+    blast_extend.c:57 + kQueryLenForHashTable, blast_parameters.c:174)."""
+    if concat_qlen > 8000:
+        return 0
+    L = 1
+    while L < concat_qlen + window_size:
+        L <<= 1
+    return L - 1
+
+
+def one_hit_diag_filter(
+    q_off: np.ndarray,
+    s_off: np.ndarray,
+    oid: np.ndarray,
+    word_size: int,
+    ung_s_start: np.ndarray,
+    ung_length: np.ndarray,
+    ung_score: np.ndarray,
+    cutoff: np.ndarray,
+    use_native: bool = True,
+    diag_mask: int = 0,
+) -> np.ndarray:
+    """Sequential per-diagonal replay; returns boolean 'saved' mask.
+
+    Diagonal state is keyed on (oid, diag). Reference semantics
+    (na_ungapped.c:612):
+      - skip seeds starting inside the explored area (s_off < last_hit);
+      - accepted seeds with ungapped score >= cutoff are saved and push
+        last_hit to the ungapped end; failed ones push it to seed end.
+
+    Runs natively (native/diagfilter.cpp) when available; the Python
+    loop below is the parity oracle.
+    """
+    n = len(q_off)
+    saved = np.zeros(n, dtype=bool)
+    if n == 0:
+        return saved
+    if use_native:
+        order = _native_diag_order(q_off, s_off, oid, diag_mask)
+        if order is not None:
+            native = _native_diag_filter(
+                q_off, s_off, oid, order, word_size, 0,
+                ung_s_start, ung_length, ung_score, cutoff, None,
+                diag_mask,
+            )
+            if native is not None:
+                return native
+    diag = s_off.astype(np.int64) - q_off.astype(np.int64)
+    if diag_mask:
+        diag = diag & diag_mask
+    # q tiebreak: aliased diagonals can carry two hits at one subject
+    # position; the scan emits them in ascending-q chain order
+    order = np.lexsort((q_off, s_off, diag, oid))
+    last_key = None
+    last_hit = 0
+    for i in order:
+        key = (int(oid[i]), int(diag[i]))
+        if key != last_key:
+            last_key = key
+            last_hit = 0
+        s = int(s_off[i])
+        if s < last_hit:
+            continue
+        if ung_score[i] >= cutoff[i]:
+            saved[i] = True
+            last_hit = int(ung_s_start[i]) + int(ung_length[i])
+        else:
+            last_hit = s + word_size
+    return saved
+
+
+def ungapped_inputs(
+    dev: SeedingDeviceData,
+    *,
+    word_size: int,
+    lut_word: int,
+    scan_step: int,
+    context_offsets: np.ndarray,    # int32[n_ctx+1]
+    x_dropoffs: np.ndarray,         # int32[n_ctx] per-context raw X-drop
+):
+    """Scan + mini-extension on the device. Returns (ctx, k1_args,
+    n_raw): the survivors' contexts, the argument tuple of
+    ``ungapped_extend_window`` for them, and the raw seed count."""
+    res = dev.resident
+    n_ctx = len(x_dropoffs)
+    n_scan = max((res.length - lut_word) // scan_step + 1, 1)
+    device = res.device
+    (qs, ss, ctx, xd, max_l, max_r, n_raw) = seeding_scan_mini(
+        res.subject2, res.valid, dev.lut_offsets, dev.lut_positions,
+        dev.query_nib, res.subject_w,
+        torch.from_numpy(
+            np.asarray(context_offsets[: n_ctx + 1], np.int64)
+        ).to(device),
+        torch.from_numpy(np.asarray(x_dropoffs, np.int32)).to(device),
+        res.starts, res.ends,
+        query_len=int(dev.query_packed.shape[0]),
+        scan_step=scan_step, lut_word=lut_word, word_size=word_size,
+        n_scan=n_scan,
+    )
+    k1_args = (dev.query_packed, res.subject2, dev.table64,
+               qs.to(torch.int32), ss.to(torch.int32), xd, max_l, max_r)
+    return ctx, k1_args, n_raw
+
+
+def run_seeding(
+    dev: SeedingDeviceData,
+    *,
+    subject_starts: np.ndarray,     # int64[num_subjects] base starts
+    word_cutoffs: np.ndarray,       # int32[n_ctx] per-context word cutoff
+    approx_ctx: dict | None = None,
+    **scan_kw,                      # ungapped_inputs keywords
+) -> InitHits:
+    """One-hit seeding pass over the resident database: scan + mini on
+    the device, K1 on every survivor, one fetch, host replay."""
+    with slog.time("device.seeding.pipeline"):
+        ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
+        uq, us, ulen, usc, _flags = ungapped_extend_window(*k1_args)
+        # one device->host fetch of everything the host finish needs
+        rows = torch.stack([
+            k1_args[3], k1_args[4], ctx.to(torch.int32), uq, us, ulen, usc,
+        ]).cpu().numpy()
+    slog.diagnostics.lookup_hits += n_raw
+    slog.diagnostics.init_extends += rows.shape[1]
+    if rows.shape[1] == 0:
+        z = np.zeros(0, dtype=np.int32)
+        return InitHits(z, z, z, z, z, z, z, z)
+    n_ctx = len(word_cutoffs)
+    return _finish_init_hits(
+        *rows, word_cutoffs, subject_starts, scan_kw["word_size"],
+        concat_qlen=int(scan_kw["context_offsets"][n_ctx]) - 2,
+        approx_ctx=approx_ctx,
+    )
+
+
+def _finish_init_hits(
+    q_np, s_np, ctx, ug_q, ug_s, ug_len, ug_score,
+    word_cutoffs, subject_starts, word_size,
+    concat_qlen: int = 1 << 30,   # > 8000 -> exact (hash) diagonals
+    approx_ctx: dict | None = None,   # approximate-ungapped gate data
+) -> InitHits:
+    """Host finishing: per-context cutoffs, oid mapping, the one-hit
+    diagonal replay, final score ordering.
+
+    The replay runs in subject-local int32 coordinates (diagonal state
+    is keyed per (oid, diag), and shifting s_off and ung_s_start by the
+    same per-subject constant preserves every comparison); the resident
+    tier's size bound keeps every local coordinate below 2^31."""
+    cutoff = word_cutoffs[ctx].astype(np.int32)
+
+    if len(subject_starts) == 1:
+        # single-subject DB: every seed maps to oid 0
+        oid = np.zeros(len(s_np), np.int32)
+        base = np.int64(subject_starts[0])
+    else:
+        oid = (
+            np.searchsorted(subject_starts, s_np, side="right") - 1
+        ).astype(np.int32)
+        base = subject_starts[oid].astype(np.int64)
+    s_loc = (s_np.astype(np.int64) - base).astype(np.int32)
+    ug_s_loc = (ug_s.astype(np.int64) - base).astype(np.int32)
+    q32 = q_np.astype(np.int32)
+    len32 = ug_len.astype(np.int32)
+    score32 = ug_score.astype(np.int32)
+
+    # the reference scores ungapped extensions APPROXIMATELY first for
+    # word lengths >= 11 (s_NuclUngappedExtend, na_ungapped.c:263) and
+    # only rescored exactly above the reduced cutoff; a seed whose
+    # byte-quantized score stays below it keeps the low approximate
+    # score and fails the cutoff even when its exact score passes.
+    if approx_ctx is not None and word_size >= 11:
+        # only cutoff-passing seeds can be demoted (failed seeds push
+        # last_hit from the seed end either way)
+        need = score32 >= cutoff
+        if need.any():
+            from gblastn_tpu.engine.approx import compute_approx_info
+
+            sub_st = np.asarray(subject_starts, np.int64)[oid]
+            sub_en = np.asarray(approx_ctx["subject_ends"],
+                                np.int64)[oid]
+            with slog.time("host.approx_gate"):
+                demote, a_sc, a_q, a_s, a_r = compute_approx_info(
+                    approx_ctx["query"], approx_ctx["concat_end"],
+                    approx_ctx["packed"], sub_st, sub_en,
+                    np.asarray(q_np, np.int64),
+                    np.asarray(s_np, np.int64),
+                    ctx, approx_ctx["x_dropoffs"],
+                    approx_ctx["reduced"],
+                    approx_ctx["table"], need,
+                )
+            if demote.any():
+                sme = np.asarray(s_np, np.int64) + word_size
+                ug_q = np.asarray(ug_q).copy()
+                ug_s = np.asarray(ug_s).copy()
+                ug_len = np.asarray(ug_len).copy()
+                ug_score = np.asarray(ug_score).copy()
+                d = demote
+                ug_q[d] = a_q[d]
+                ug_s[d] = a_s[d]
+                ug_len[d] = np.maximum(
+                    sme[d] - a_s[d], a_r[d] - a_q[d] + 1
+                )
+                ug_score[d] = a_sc[d]
+                ug_s_loc = (ug_s.astype(np.int64) - base).astype(np.int32)
+                len32 = ug_len.astype(np.int32)
+                score32 = ug_score.astype(np.int32)
+
+    dmask = diag_table_mask(concat_qlen, 0)
+    with slog.time("host.diag_filter"):
+        saved = one_hit_diag_filter(
+            q32, s_loc, oid, word_size, ug_s_loc, len32, score32,
+            cutoff, diag_mask=dmask,
+        )
+    keep = np.nonzero(saved)[0]
+    order = sort_by_score_order(
+        ug_score[keep], ug_s[keep], ug_len[keep], ug_q[keep]
+    )
+    keep = keep[order]
+    return InitHits(
+        q_off=q_np[keep],
+        s_off=s_np[keep],
+        q_start=ug_q[keep],
+        s_start=ug_s[keep],
+        length=ug_len[keep],
+        score=ug_score[keep],
+        context=ctx[keep],
+        oid=oid[keep],
+    )

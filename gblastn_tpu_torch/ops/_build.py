@@ -1,0 +1,84 @@
+"""Build and bind the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled at first use with ``nvcc`` into one
+shared library with a plain C interface under ``build/gblastn_tpu_torch/``
+at the repository root, and loaded with ``ctypes``. No PyTorch headers are
+included, so a build takes seconds. Nothing here runs at import time:
+``load()`` is called by a kernel wrapper when it first sees a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "gblastn_tpu_torch"
+_LIB_NAME = "libgblastn_torch_kernels.so"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+_lib = None
+build_log = ""        # nvcc's output of the last build (ptxas register use)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "gblastn_tpu_torch are built from csrc/ at first use"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library if it is missing or
+    older than a source; returns its path. Raises on a failed build."""
+    global build_log
+    sources = sorted(_SRC_DIR.glob("*.cu"))
+    lib_path = BUILD_DIR / _LIB_NAME
+    if lib_path.exists() and all(
+        s.stat().st_mtime <= lib_path.stat().st_mtime for s in sources
+    ):
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".so.tmp.{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    build_log = r.stdout + r.stderr
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.gblastn_ungapped_xdrop
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 8        # query .. max_r
+            + [ctypes.c_int]             # n
+            + [ctypes.c_void_p] * 5      # five outputs
+            + [ctypes.c_void_p]          # stream
+        )
+        _lib = lib
+    return _lib

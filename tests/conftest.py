@@ -29,3 +29,9 @@ try:
     jax.config.update("jax_default_device", jax.devices("cpu")[0])
 except RuntimeError:
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips with a reason elsewhere)"
+    )
