@@ -4,28 +4,63 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one NVIDIA H100. It
-builds the CUDA kernels from csrc/, holds each against its plain PyTorch
-version on the card, drives the megablast main path end to end through
-the CLI (bench config 1: 500 x 1 kb reads against a 4.6 Mb genome) with
-every kernel's launch counter checked, compares the tabular bytes with
-the plain-PyTorch run on the CPU, and searches one batch against a
-300 Mb genome held resident. Any failure raises (exit code != 0). The
-last two lines of standard output are the kernels' JSON record and the
-device JSON record. Needs no network; scratch files go to
+builds the CUDA kernels from csrc/ (one nvcc per source, all started
+together), holds each against its plain PyTorch version on the card, and
+drives the port's paths end to end, each with every kernel's launch
+counter set to 0 just before it and read just after:
+
+1. megablast, config 1 of bench.py (500 x 1 kb reads against a 4.6 Mb
+   genome), through the CLI: K1; tabular bytes equal to the plain-PyTorch
+   run on the CPU;
+2. one 500-read megablast batch against a 300 Mb genome held resident;
+3. blastn word 11, config 2 of bench.py (200 x 1.5 kb reads against the
+   same 4.6 Mb genome), through search() with the device gapped filter
+   against the same search without it, and through the CLI: K1 and K2;
+   tabular bytes equal to the CPU run.
+
+Any failure raises (exit code != 0). The last three lines of standard
+output are the card's name and power limit, the kernels' JSON record and
+the device JSON record. Needs no network; scratch files go to
 build/chip_smoke/ in the checkout.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent
 SEED = 20260816
+GENOME_LEN = 4_600_000          # bench.py's workload sizes
+NUM_QUERIES = 500
+QUERY_LEN = 1000
+BIG_GENOME_LEN = 300_000_000
+BIG_BATCH = 500
+C2_QUERIES = 200
+C2_QUERY_LEN = 1500
+
 K1_SOURCE = "gblastn_tpu_torch/csrc/ungapped_xdrop.cu"
 K1_REPLACES = "gblastn_tpu/ops/pallas_ungapped.py:161"
+K2_SOURCE = "gblastn_tpu_torch/csrc/gapped_band.cu"
+K2_REPLACES = "gblastn_tpu/ops/pallas_gapped.py:83"
+
+# The card's peak rates for the bounds (NVIDIA H100 SXM data sheet at
+# 700 W): 3.35 TB/s of HBM, and int32 outside the tensor cores at 64
+# INT32 lanes per SM x 132 SMs x 1.98 GHz boost = 16.7 Tops/s (half the
+# float32 lanes behind the sheet's 67 TFLOP/s).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 operations the recurrences need per unit of work (loads, address
+# arithmetic and loop control not counted; the tallies are in the notes of
+# csrc/ungapped_xdrop.cu and csrc/gapped_band.cu):
+K1_OPS_PER_STEP = 9       # score 3, sum 1, drop test 2, best and its step 3
+K2_OPS_PER_CELL = 18      # diag 1, Ht 1, u 3, scan 1, E 3, H 1, thr 2,
+                          # live 1, F 4, best 1; cells with j in [0, N]
 
 
 def check(cond, msg):
@@ -33,33 +68,29 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-class _StartRecorder:
-    """numpy Generator proxy that records each read's start locus as
-    bench._sample_reads draws it (the draw ``integers(0, hi)``)."""
-
-    def __init__(self, rng, hi):
-        self._rng = rng
-        self._hi = hi
-        self.starts = []
-
-    def integers(self, low, high=None, *a, **k):
-        v = self._rng.integers(low, high, *a, **k)
-        if low == 0 and high == self._hi:
-            self.starts.append(int(v))
-        return v
-
-    def random(self, *a, **k):
-        return self._rng.random(*a, **k)
+def make_genome(rng, n):
+    """bench.py's _make_genome."""
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return bases[rng.integers(0, 4, n)].tobytes().decode()
 
 
 def sample_reads(rng, genome, num, qlen, prefix):
-    """bench._sample_reads, also returning each read's source start."""
-    from bench import _sample_reads
-
-    rec = _StartRecorder(rng, len(genome) - qlen)
-    reads = _sample_reads(rec, genome, num, qlen, prefix)
-    check(len(rec.starts) == num, "read loci not recorded")
-    return reads, rec.starts
+    """bench.py's _sample_reads (the same draws in the same order), as
+    (sequence name, sequence) pairs, and each read's source start."""
+    reads, starts = [], []
+    for i in range(num):
+        start = int(rng.integers(0, len(genome) - qlen))
+        read = list(genome[start: start + qlen])
+        for p in np.flatnonzero(rng.random(qlen) < 0.02):
+            read[p] = "ACGT"[(("ACGT".index(read[p])) + 1 +
+                              int(rng.integers(0, 3))) % 4]
+        seq = "".join(read)
+        if rng.random() < 0.3:  # occasional short deletion
+            cut = int(rng.integers(100, qlen - 100))
+            seq = seq[:cut] + seq[cut + 3:]
+        reads.append((f"{prefix}{i}", seq))
+        starts.append(start)
+    return reads, starts
 
 
 def cuda_ms(fn, reps):
@@ -77,9 +108,22 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes, ops):
+    """(least ms, what sets it) for this many bytes (each input read
+    once, each output written once) and int32 ops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def compare_k1(args, label, card, reps):
     """K1 against its plain version on the same CUDA tensors: bit-equal
-    on all five outputs. Returns (max_abs_err, ms, plain_ms)."""
+    on all five outputs. Returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)."""
     import torch
 
     from gblastn_tpu_torch.ops.ungapped import (
@@ -88,7 +132,7 @@ def compare_k1(args, label, card, reps):
     )
 
     got = ungapped_extend_window(*args)
-    want = ungapped_extend_window_ref(*args)
+    *want, steps = ungapped_extend_window_ref(*args, return_steps=True)
     torch.cuda.synchronize()
     err = max(
         int((g.long() - w.long()).abs().max()) if g.numel() else 0
@@ -98,16 +142,61 @@ def compare_k1(args, label, card, reps):
                     f"(max abs err {err})")
     ms = cuda_ms(lambda: ungapped_extend_window(*args), reps)
     plain_ms = cuda_ms(lambda: ungapped_extend_window_ref(*args), 3)
-    print(f"k1 {label}: n={args[3].numel()} bit-equal, kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms  [{card}]")
-    return err, ms, plain_ms
+    n = args[3].numel()
+    steps = int(steps.sum())
+    # query, subject, table and 5 int32 per seed in; 5 int32 per seed out
+    bound_ms, by = bound(nbytes(*args) + 20 * n, K1_OPS_PER_STEP * steps)
+    print(f"k1 {label}: n={n} seeds, {steps} walk steps, bit-equal, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({by})  [{card}]")
+    return err, ms, plain_ms, bound_ms, by
+
+
+def compare_k2(args, kw, label, card, reps):
+    """K2 against its plain version on the same CUDA tensors: bit-equal
+    on score and flags of every job. Returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)."""
+    import torch
+
+    from gblastn_tpu_torch.ops.gapped import (
+        FLAG_EDGE,
+        FLAG_ROWS,
+        banded_gapped_scores,
+        banded_gapped_scores_ref,
+    )
+
+    got = banded_gapped_scores(*args, **kw)
+    ws, wf, cells = banded_gapped_scores_ref(*args, **kw,
+                                             return_cells=True)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, (ws, wf)))
+    check(err == 0, f"K2 differs from its plain version on {label} "
+                    f"(max abs err {err})")
+    ms = cuda_ms(lambda: banded_gapped_scores(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: banded_gapped_scores_ref(*args, **kw), 2)
+    jobs = args[3]
+    J = len(jobs)
+    cells = int(cells.sum())
+    # query, subject, matrix and 28 bytes per job in; 8 per job out
+    bound_ms, by = bound(
+        nbytes(*args[:3], jobs.a0, jobs.b0, jobs.m, jobs.n, jobs.x) + 8 * J,
+        K2_OPS_PER_CELL * cells)
+    f = wf.cpu().numpy()
+    n_edge = int(((f & FLAG_EDGE) != 0).sum())
+    n_rows = int(((f & FLAG_ROWS) != 0).sum())
+    empty = int(((jobs.m <= 0) | (jobs.n <= 0)).sum())
+    print(f"k2 {label}: {J} jobs ({empty} empty), rows {kw['rows']}, "
+          f"{cells} cells (j in [0, N]) computed, flagged edge {n_edge} / rows "
+          f"{n_rows}, bit-equal, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})  [{card}]")
+    return err, ms, plain_ms, bound_ms, by
 
 
 def random_k1_args(device, n=32768, seed=SEED + 1):
     """A multi-subject resident db and a query with N, R, Y and
     sentinels; n random seeds (a quarter on planted matches) with walk
     budgets bounded by the query buffer and the owning subject."""
-    import numpy as np
     import torch
 
     from gblastn_tpu_torch import FastaRecord, SequenceDB
@@ -167,6 +256,55 @@ def random_k1_args(device, n=32768, seed=SEED + 1):
             max_r.to(i32))
 
 
+def random_k2_cases(device, n=4096, seed=SEED + 5):
+    """K2 jobs on a random subject and query with planted stretches (3%
+    mutated; every third with a 70-base insertion, past the band's half
+    width), N bases, empty jobs (M or N = 0) and a short row budget, for
+    both scorings as device_gapped_params gives them: blastn DP 2/-3,
+    gaps 5/2, X = gap_x_dropoff; megablast greedy in doubled units, open
+    0, extend 5, X = 2 gap_x_dropoff. Yields (label, args, kw)."""
+    import torch
+
+    from gblastn_tpu_torch import blastn_options, megablast_options
+    from gblastn_tpu_torch.engine.gapped import device_gapped_params
+    from gblastn_tpu_torch.ops.gapped import gapped_jobs
+
+    rng = np.random.default_rng(seed)
+    S, Q = 2_000_000, 1_000_000
+    sub = rng.integers(0, 4, S).astype(np.int8)
+    q = rng.integers(0, 4, Q).astype(np.uint8)
+    qs = rng.integers(3000, Q - 3000, n)
+    ss = rng.integers(3000, S - 3000, n)
+    for k in range(0, n, 2):
+        L = int(rng.integers(200, 1200))
+        seg = sub[ss[k]: ss[k] + L].astype(np.uint8).copy()
+        mut = rng.random(L) < 0.03
+        seg[mut] = rng.integers(0, 4, int(mut.sum()))
+        if k % 6 == 0:
+            seg = np.concatenate([seg[:L // 3], rng.integers(
+                0, 4, 70).astype(np.uint8), seg[L // 3:]])
+        q[qs[k]: qs[k] + len(seg)] = seg
+    q[rng.random(Q) < 0.01] = 14
+    q_lo = np.maximum(qs - rng.integers(0, 2000, n), 0)
+    q_hi = np.minimum(qs + rng.integers(0, 2000, n), Q)
+    s_lo = np.maximum(ss - rng.integers(0, 2000, n), 0)
+    s_hi = np.minimum(ss + rng.integers(0, 2000, n), S)
+    q_hi[1::7] = qs[1::7]
+    s_lo[2::9] = ss[2::9]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for name, opts, gxd in (("blastn", blastn_options(), 33),
+                            ("megablast", megablast_options(), 27)):
+        mat, _dbl, go, ge, xd = device_gapped_params(opts, gxd)
+        x = np.where(rng.random(n) < 0.1, 400, xd).astype(np.int32)
+        jobs = gapped_jobs(t(qs), t(ss), t(q_lo), t(q_hi), t(s_lo),
+                           t(s_hi), t(x))
+        yield (f"random {name} jobs", (t(q), t(sub), t(mat), jobs),
+               dict(rows=512, gap_open=go, gap_extend=ge))
+
+
 def tabular_loci_found(text, starts, qlen, slack=200):
     """Every read 'prefix{i}' has an HSP overlapping its source locus."""
     best = {}
@@ -183,6 +321,16 @@ def tabular_loci_found(text, starts, qlen, slack=200):
     return missing
 
 
+def hsp_rows(res):
+    """Every HSP of a search result, all fields, in result order."""
+    def fields(h):
+        return tuple((k, list(v) if k == "edit_script" and v is not None
+                      else v) for k, v in vars(h).items())
+
+    return [(q.query_index, lst.oid, lst.best_evalue, fields(h))
+            for q in res.queries for lst in q.hsplists for h in lst.hsps]
+
+
 def main() -> int:
     import torch
 
@@ -190,22 +338,30 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "smoke needs a CUDA card", file=sys.stderr)
         return 2
-    import numpy as np
 
     sys.path.insert(0, str(REPO))
-    import bench
     from gblastn_tpu_torch import (
         FastaRecord,
         SequenceDB,
+        blastn_options,
         megablast_options,
         slog,
     )
     from gblastn_tpu_torch.cli.main import main as cli_main
-    from gblastn_tpu_torch.engine.search import search, setup_batch
-    from gblastn_tpu_torch.engine.seeding import ungapped_inputs
+    from gblastn_tpu_torch.engine.gapped import gapped_filter_jobs
+    from gblastn_tpu_torch.engine.search import (
+        _build_gapped_filter,
+        search,
+        setup_batch,
+    )
+    from gblastn_tpu_torch.engine.seeding import run_seeding, ungapped_inputs
+    from gblastn_tpu_torch.io.fasta import BATCH_SIZE_BLASTN, batch_records
     from gblastn_tpu_torch.ops import _build
+    from gblastn_tpu_torch.ops import gapped as og
     from gblastn_tpu_torch.ops import ungapped as ung
-    from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+
+    k1 = ung.ungapped_extend_window
+    k2 = og.banded_gapped_scores
 
     # 1. the card
     smi = subprocess.run(
@@ -216,6 +372,8 @@ def main() -> int:
     print(smi)
     card = f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
     dev = torch.device("cuda:0")
+    os.environ.pop("GBLASTN_TPU_GAPPED_FILTER", None)
+    os.environ.pop("GBLASTN_TPU_GAPPED_FILTER_MIN", None)
 
     # 2. build
     t0 = time.time()
@@ -223,14 +381,14 @@ def main() -> int:
     _build.load()
     print(f"build: {time.time() - t0:.1f} s")
     for ln in _build.build_log.splitlines():
-        if "registers" in ln or "spill" in ln:
+        if ln.startswith("==") or "registers" in ln or "spill" in ln:
             print(f"ptxas: {ln.strip()}")
 
     # config-1 workload (bench.py's recipe and seed)
     rng = np.random.default_rng(SEED)
-    genome = bench._make_genome(rng, bench.GENOME_LEN)
-    reads, starts = sample_reads(rng, genome, bench.NUM_QUERIES,
-                                 bench.QUERY_LEN, "w0_")
+    genome = make_genome(rng, GENOME_LEN)
+    pairs, starts = sample_reads(rng, genome, NUM_QUERIES, QUERY_LEN, "w0_")
+    reads = [FastaRecord(n, "", s) for n, s in pairs]
     options = megablast_options(evalue=1e-5, max_target_seqs=10)
     db = SequenceDB.from_records(
         [FastaRecord("ecoli_synth", "synthetic E. coli scale genome",
@@ -239,18 +397,45 @@ def main() -> int:
 
     # 3. K1 against its plain version on the card
     batch = setup_batch(reads, db, options, dev)
-    kw = {k: batch.seed_kw[k] for k in ("word_size", "lut_word",
-                                         "scan_step", "context_offsets",
-                                         "x_dropoffs")}
-    _ctx, k1_args, _n = ungapped_inputs(batch.seed_dev, **kw)
-    err1, ms, plain_ms = compare_k1(k1_args, "config-1 batch seeds", card,
-                                    50)
-    err2, _ms2, _pms2 = compare_k1(random_k1_args(dev),
-                                   "random seeds, N/R/Y, 12 subjects",
-                                   card, 20)
+    kw1 = {k: batch.seed_kw[k] for k in ("word_size", "lut_word",
+                                          "scan_step", "context_offsets",
+                                          "x_dropoffs")}
+    _ctx, k1_args, _n = ungapped_inputs(batch.seed_dev, **kw1)
+    k1_c1 = compare_k1(k1_args, "config-1 batch seeds", card, 50)
+    k1_rand = compare_k1(random_k1_args(dev),
+                         "random seeds, N/R/Y, 12 subjects", card, 20)
     del batch, k1_args
 
-    # 4. config 1 end to end through the CLI
+    # 4. K2 against its plain version on the card: random jobs of both
+    # scorings
+    k2_rand = [compare_k2(args, kw, label, card, 20)
+               for label, args, kw in random_k2_cases(dev)]
+
+    # no fallback: a CUDA tensor must never reach a plain version on a
+    # main path
+    plain1 = ung.ungapped_extend_window_ref
+    plain2 = og.banded_gapped_scores_ref
+
+    def guarded1(*args, **kw):
+        check(not any(a.is_cuda for a in args),
+              "a CUDA tensor reached the plain K1 on the main path")
+        return plain1(*args, **kw)
+
+    def guarded2(query, *args, **kw):
+        check(not query.is_cuda,
+              "a CUDA tensor reached the plain K2 on the main path")
+        return plain2(query, *args, **kw)
+
+    def guard(on):
+        ung.ungapped_extend_window_ref = guarded1 if on else plain1
+        og.banded_gapped_scores_ref = guarded2 if on else plain2
+
+    def counts_zero():
+        k1.launches = 0
+        k2.launches = 0
+
+    # 5. config 1 end to end through the CLI (megablast: K1; fewer than
+    # 2000 gapped candidates, so K2 stays off)
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     (work / "genome.fa").write_text(
@@ -264,32 +449,24 @@ def main() -> int:
              str(work / "db"), "-outfmt", "6", "-evalue", "1e-5",
              "-max_target_seqs", "10"]
 
-    def run_cli(device, out):
+    def run_cli(args, device, out):
         t = time.time()
-        rc = cli_main(blast + ["-device", device, "-out", str(out)])
+        rc = cli_main(args + ["-device", device, "-out", str(out)])
         torch.cuda.synchronize()
         check(rc == 0, f"blastn -device {device} exited {rc}")
         return time.time() - t
 
-    # no fallback: a CUDA tensor must never reach the plain version
-    plain = ung.ungapped_extend_window_ref
-
-    def guarded_plain(*args):
-        check(not any(a.is_cuda for a in args),
-              "a CUDA tensor reached the plain K1 on the main path")
-        return plain(*args)
-
-    ung.ungapped_extend_window_ref = guarded_plain
-    ungapped_extend_window.launches = 0
-    t_cold = run_cli("cuda", work / "c1_cuda.tsv")
-    launches = ungapped_extend_window.launches
-    check(launches > 0, "K1 was not launched on the config-1 main path")
+    guard(True)
+    counts_zero()
+    t_cold = run_cli(blast, "cuda", work / "c1_cuda.tsv")
+    c1_launches = (k1.launches, k2.launches)
+    check(c1_launches[0] > 0, "K1 was not launched on the config-1 path")
     slog.reset()
-    t_warm = run_cli("cuda", work / "c1_cuda_warm.tsv")
+    t_warm = run_cli(blast, "cuda", work / "c1_cuda_warm.tsv")
     for ln in slog.report().splitlines()[1:]:
         print(f"stage (config1 cuda warm): {ln}")
-    t_cpu = run_cli("cpu", work / "c1_cpu.tsv")
-    ung.ungapped_extend_window_ref = plain
+    t_cpu = run_cli(blast, "cpu", work / "c1_cpu.tsv")
+    guard(False)
     out_cuda = (work / "c1_cuda.tsv").read_bytes()
     check(out_cuda == (work / "c1_cuda_warm.tsv").read_bytes(),
           "two cuda runs disagree")
@@ -297,23 +474,164 @@ def main() -> int:
           "config-1 tabular bytes differ between -device cuda and cpu")
     missing = tabular_loci_found(
         out_cuda.decode(), {r.seq_id: s for r, s in zip(reads, starts)},
-        bench.QUERY_LEN,
+        QUERY_LEN,
     )
     check(not missing, f"reads missing their source locus: {missing[:5]}")
     n_lines = out_cuda.count(b"\n")
-    nq = bench.NUM_QUERIES
-    print(f"config1 cli: {nq} queries, {n_lines} tabular lines, "
-          f"K1 launches {launches}; cuda cold {t_cold:.2f} s, warm "
-          f"{t_warm:.2f} s = {nq / t_warm:.1f} q/s; cpu plain "
-          f"{t_cpu:.2f} s; bytes equal, all {nq} loci found  [{card}]")
-    del genome, db
+    print(f"config1 cli: {NUM_QUERIES} queries, {n_lines} tabular lines, "
+          f"launches K1 {c1_launches[0]} K2 {c1_launches[1]}; cuda cold "
+          f"{t_cold:.2f} s, warm {t_warm:.2f} s = "
+          f"{NUM_QUERIES / t_warm:.1f} q/s; cpu plain {t_cpu:.2f} s; "
+          f"bytes equal, all {NUM_QUERIES} loci found  [{card}]")
+    del reads
 
-    # 5. scale: one 500-read batch against a 300 Mb resident genome
+    # 6. config 2: blastn word 11 on 200 x 1.5 kb reads, same genome
+    rng2 = np.random.default_rng(SEED + 2)
+    pairs2, starts2 = sample_reads(rng2, genome, C2_QUERIES, C2_QUERY_LEN,
+                                   "b")
+    reads2 = [FastaRecord(n, "", s) for n, s in pairs2]
+    b_opts = blastn_options(evalue=1e-5, max_target_seqs=10)
+    batch2 = setup_batch(reads2, db, b_opts, dev)
+    check(batch2.seed_kw["word_size"] == 11, "config 2 is not word 11")
+    kw2 = {k: batch2.seed_kw[k] for k in kw1}
+    _ctx, k1_args2, n_raw2 = ungapped_inputs(batch2.seed_dev, **kw2)
+    print(f"config2 seeding: lut word {kw2['lut_word']}, scan step "
+          f"{kw2['scan_step']}, {n_raw2} raw seeds, "
+          f"{k1_args2[3].numel()} K1 seeds")
+    k1_c2 = compare_k1(k1_args2, "config-2 batch seeds", card, 20)
+    del k1_args2
+    init2 = run_seeding(batch2.seed_dev, **batch2.seed_kw)
+    dgd = _build_gapped_filter(batch2)
+    check(dgd is not None, "the gapped filter is off for config 2")
+    jobs2 = gapped_filter_jobs(init2, batch2.qblock, db.starts, db.lengths,
+                               batch2.params, dgd)
+    print(f"config2 candidates: {len(init2)}, {len(jobs2)} K2 jobs at "
+          f"rows {dgd.rows}")
+    check(len(init2) >= 2000, "config 2 has fewer than 2000 candidates")
+    k2_c2 = compare_k2((dgd.query, dgd.subject2, dgd.matrix16, jobs2),
+                       dict(rows=dgd.rows, gap_open=dgd.gap_open,
+                            gap_extend=dgd.gap_extend),
+                       "config-2 candidates", card, 20)
+    del batch2, jobs2, dgd
+
+    # 6a. config 2 through search(), with the filter (auto) and without
+    def run_search(mode):
+        os.environ["GBLASTN_TPU_GAPPED_FILTER"] = mode
+        counts_zero()
+        slog.reset()
+        t = time.time()
+        res = search(reads2, db, b_opts, device=dev)
+        torch.cuda.synchronize()
+        t = time.time() - t
+        os.environ.pop("GBLASTN_TPU_GAPPED_FILTER")
+        return (res, t, (k1.launches, k2.launches), dict(slog.totals),
+                slog.diagnostics.device_gapped_rejects,
+                slog.diagnostics.gapped_extensions)
+
+    guard(True)
+    on = run_search("auto")
+    off = run_search("0")
+    guard(False)
+    res_on, t_on, s_launch, spans_on, rejects, ext_on = on
+    res_off, t_off, off_launch, spans_off, _r, ext_off = off
+    check(s_launch[0] >= 1 and s_launch[1] >= 1,
+          f"config-2 search launches K1/K2 {s_launch}")
+    check(off_launch[1] == 0, "K2 ran with the filter off")
+    check(rejects > 0, "the gapped filter rejected no candidate")
+    check(hsp_rows(res_on) == hsp_rows(res_off),
+          "config-2 results differ with and without the gapped filter")
+    found = 0
+    for q in res_on.queries:
+        st = starts2[q.query_index]
+        if any(h.s_off < st + C2_QUERY_LEN and h.s_end > st
+               for lst in q.hsplists for h in lst.hsps):
+            found += 1
+    check(found == C2_QUERIES,
+          f"config 2: {C2_QUERIES - found} reads missed their locus")
+    print(f"config2 search: launches K1 {s_launch[0]} K2 {s_launch[1]}, "
+          f"{rejects} of {ext_on} candidates rejected on the device "
+          f"({ext_off} host extensions without the filter); search "
+          f"{t_on:.2f} s vs {t_off:.2f} s; host.prelim_gapped "
+          f"{spans_on['host.prelim_gapped'] * 1e3:.1f} ms (of which "
+          f"device.gapped_filter "
+          f"{spans_on['device.gapped_filter'] * 1e3:.1f} ms) vs "
+          f"{spans_off['host.prelim_gapped'] * 1e3:.1f} ms; results "
+          f"identical, all {C2_QUERIES} loci found  [{card}]")
+    for name in sorted(spans_on):
+        print(f"stage (config2 search, filter on / off): {name} "
+              f"{spans_on[name] * 1e3:.1f} / "
+              f"{spans_off.get(name, 0.0) * 1e3:.1f} ms")
+    del res_on, res_off
+
+    # 6b. config 2 through the CLI
+    (work / "reads2.fa").write_text("".join(
+        f">{r.seq_id}\n{r.sequence}\n" for r in reads2))
+    blast2 = ["blastn", "-task", "blastn", "-query",
+              str(work / "reads2.fa"), "-db", str(work / "db"), "-outfmt",
+              "6", "-evalue", "1e-5", "-max_target_seqs", "10"]
+    n_batches = len(list(batch_records(iter(reads2), BATCH_SIZE_BLASTN)))
+    guard(True)
+    counts_zero()
+    slog.reset()
+    t2_cold = run_cli(blast2, "cuda", work / "c2_cuda.tsv")
+    c2_launches = (k1.launches, k2.launches)
+    c2_rejects = slog.diagnostics.device_gapped_rejects
+    slog.reset()
+    t2_warm = run_cli(blast2, "cuda", work / "c2_cuda_warm.tsv")
+    for ln in slog.report().splitlines()[1:]:
+        print(f"stage (config2 cuda warm): {ln}")
+    guard(False)
+    check(c2_launches[0] >= 1, "K1 was not launched on the config-2 CLI")
+    check(c2_launches[1] == n_batches,
+          f"K2 ran {c2_launches[1]} times over {n_batches} CLI batches")
+    out2 = (work / "c2_cuda.tsv").read_bytes()
+    check(out2 == (work / "c2_cuda_warm.tsv").read_bytes(),
+          "two config-2 cuda runs disagree")
+    missing = tabular_loci_found(
+        out2.decode(), {r.seq_id: s for r, s in zip(reads2, starts2)},
+        C2_QUERY_LEN,
+    )
+    check(not missing, f"config-2 reads missing their locus: {missing[:5]}")
+    # -device cpu: the first CLI batch, then all of them when the whole
+    # run would take under about two minutes
+    first = next(batch_records(iter(reads2), BATCH_SIZE_BLASTN))
+    names = {r.seq_id for r in first}
+    (work / "reads2_b1.fa").write_text("".join(
+        f">{r.seq_id}\n{r.sequence}\n" for r in first))
+    blast2_b1 = list(blast2)
+    blast2_b1[blast2.index("-query") + 1] = str(work / "reads2_b1.fa")
+    t2_cpu = run_cli(blast2_b1, "cpu", work / "c2_cpu_b1.tsv")
+    want_b1 = b"".join(ln for ln in out2.splitlines(keepends=True)
+                       if ln.split(b"\t", 1)[0].decode() in names)
+    check(want_b1 == (work / "c2_cpu_b1.tsv").read_bytes(),
+          "config-2 tabular bytes of the first batch differ between "
+          "-device cuda and cpu")
+    if t2_cpu * n_batches < 120:
+        t2_cpu = run_cli(blast2, "cpu", work / "c2_cpu.tsv")
+        check(out2 == (work / "c2_cpu.tsv").read_bytes(),
+              "config-2 tabular bytes differ between -device cuda and cpu")
+        cpu_note = f"cpu plain {t2_cpu:.2f} s, bytes equal"
+    else:
+        cpu_note = (f"cpu plain {t2_cpu:.2f} s for the first CLI batch "
+                    f"({len(first)} reads), whose bytes are equal; the "
+                    f"whole cpu run (about {t2_cpu * n_batches:.0f} s) "
+                    "was not made")
+    n_lines = out2.count(b"\n")
+    print(f"config2 cli: {C2_QUERIES} queries in {n_batches} batches, "
+          f"{n_lines} tabular lines, launches K1 {c2_launches[0]} K2 "
+          f"{c2_launches[1]}, {c2_rejects} rejects; cuda cold "
+          f"{t2_cold:.2f} s, warm {t2_warm:.2f} s = "
+          f"{C2_QUERIES / t2_warm:.1f} q/s; {cpu_note}; all "
+          f"{C2_QUERIES} loci found  [{card}]")
+    del genome, db, reads2
+
+    # 7. scale: one 500-read batch against a 300 Mb resident genome
     t0 = time.time()
     rng3 = np.random.default_rng(SEED + 3)
-    big = bench._make_genome(rng3, bench.BIG_GENOME_LEN)
-    big_reads, big_starts = sample_reads(rng3, big, bench.BIG_BATCH,
-                                         bench.QUERY_LEN, "c")
+    big = make_genome(rng3, BIG_GENOME_LEN)
+    big_pairs, big_starts = sample_reads(rng3, big, BIG_BATCH, QUERY_LEN,
+                                         "c")
+    big_reads = [FastaRecord(n, "", s) for n, s in big_pairs]
     big_db = SequenceDB.from_records(
         [FastaRecord("chr1_synth", "synthetic chr1-scale genome", big)],
         title="chr1_synth",
@@ -328,7 +646,7 @@ def main() -> int:
     found = 0
     for q in res.queries:
         st = big_starts[q.query_index]
-        if any(h.s_off < st + bench.QUERY_LEN and h.s_end > st
+        if any(h.s_off < st + QUERY_LEN and h.s_end > st
                for lst in q.hsplists for h in lst.hsps):
             found += 1
     check(found == len(big_reads),
@@ -339,11 +657,27 @@ def main() -> int:
           f"{len(big_reads)} reads, all loci found, peak device memory "
           f"{peak / 2**30:.2f} GiB  [{card}]")
 
-    print(json.dumps({"kernels": [{
-        "name": "ungapped_xdrop", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max(err1, err2), "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    # the slice's main path is config 2 through the CLI; K1 and K2 are
+    # timed at its shapes (K1 also at config 1's)
+    paths = {"config1_cli": c1_launches, "config2_search": s_launch,
+             "config2_cli": c2_launches}
+    k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
+    print(smi)
+    print(json.dumps({"kernels": [
+        {"name": "ungapped_xdrop", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": c2_launches[0],
+         "max_abs_err": max(k1_c1[0], k1_rand[0], k1_c2[0]),
+         "ms": k1_c2[1], "plain_ms": k1_c2[2], "bound_ms": k1_c2[3],
+         "bound_by": k1_c2[4], "library_ms": None,
+         "ms_config1": k1_c1[1], "plain_ms_config1": k1_c1[2],
+         "bound_ms_config1": k1_c1[3],
+         "launches_by_path": {p: c[0] for p, c in paths.items()}},
+        {"name": "gapped_band", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": c2_launches[1],
+         "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],
+         "bound_ms": k2_c2[3], "bound_by": k2_c2[4], "library_ms": None,
+         "launches_by_path": {p: c[1] for p, c in paths.items()}},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

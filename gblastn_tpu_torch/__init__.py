@@ -1,11 +1,13 @@
 """gblastn_tpu_torch: the PyTorch / CUDA port of gblastn_tpu.
 
-The same megablast search as ``gblastn_tpu`` (same options, same HSPs,
-same output bytes), with the device path written in PyTorch and the
-ungapped X-drop kernel written in CUDA C++ for Hopper (sm_90a). Host
-stages (query setup, lookup table, greedy gapped extension, traceback,
-formatting) are reused from ``gblastn_tpu`` unchanged; this package
-imports ``torch`` and never ``jax``.
+The same megablast and blastn searches as ``gblastn_tpu`` (same options,
+same HSPs, same output bytes), with the device path written in PyTorch
+and the ungapped X-drop (K1) and banded gapped-DP (K2) kernels written in
+CUDA C++ for Hopper (sm_90a). The host stages (query setup, lookup
+table, gapped extension, traceback, formatting) are the port's own
+copies of the JAX package's JAX-free modules, at the same relative
+paths; this package imports ``torch`` and never ``jax`` or
+``gblastn_tpu``.
 
 Public API:
 
@@ -14,11 +16,11 @@ Public API:
     db = SequenceDB.from_fasta("genome.fa")
     results = search(queries, db, megablast_options(), device="cuda")
 
-``FastaRecord`` (a query) and ``slog`` (the stage timer behind
-``-logfile``) are exported too.
+``FastaRecord`` (a query), ``blastn_options`` and ``slog`` (the stage
+timer behind ``-logfile``) are exported too.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 
 def __getattr__(name):
@@ -28,21 +30,21 @@ def __getattr__(name):
         from gblastn_tpu_torch.engine import search as _s
 
         return getattr(_s, name)
-    # host types and the stage logger are gblastn_tpu's own, reused
     if name == "SequenceDB":
-        from gblastn_tpu.io.seqdb import SequenceDB
+        from gblastn_tpu_torch.io.seqdb import SequenceDB
 
         return SequenceDB
     if name == "FastaRecord":
-        from gblastn_tpu.io.fasta import FastaRecord
+        from gblastn_tpu_torch.io.fasta import FastaRecord
 
         return FastaRecord
-    if name in ("SearchOptions", "megablast_options", "options_for_task"):
-        from gblastn_tpu.params import options as _o
+    if name in ("SearchOptions", "megablast_options", "blastn_options",
+                "options_for_task"):
+        from gblastn_tpu_torch.params import options as _o
 
         return getattr(_o, name)
     if name == "slog":
-        from gblastn_tpu.utils.profiling import slog
+        from gblastn_tpu_torch.utils.profiling import slog
 
         return slog
     raise AttributeError(

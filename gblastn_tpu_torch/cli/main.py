@@ -1,14 +1,13 @@
 """blastn-compatible command-line interface of the PyTorch port.
 
 ``python -m gblastn_tpu_torch blastn ...`` takes the same arguments as
-``python -m gblastn_tpu blastn`` (the argument table, option building
-and -outfmt parsing are reused from gblastn_tpu.cli.main) plus
-``-device cuda|cpu`` (default cuda; asking for cuda without a card is an
-error), and searches through gblastn_tpu_torch.engine.search. Only the
-sequential ``-mode 1`` is ported. The subcommands that do not search
-(makedb, blastdbcmd, dustmasker, ...) are gblastn_tpu's own;
-blast_formatter is not offered here, since it rebuilds results through
-the JAX package's result types.
+``python -m gblastn_tpu blastn`` (the argument table and option building
+are the port's copy, cli/args.py) plus ``-device cuda|cpu`` (default
+cuda; asking for cuda without a card is an error), and searches through
+gblastn_tpu_torch.engine.search. Only the sequential ``-mode 1`` is
+ported. The subcommands that do not search (makedb, blastdbcmd,
+dustmasker, ...) are copies too (cli/dbtools.py); blast_formatter is not
+offered here.
 """
 from __future__ import annotations
 
@@ -19,11 +18,13 @@ from pathlib import Path
 
 import numpy as np
 
-from gblastn_tpu.cli.main import (
+from gblastn_tpu_torch.cli.args import (
     _add_blastn_args,
     _build_options,
     _parse_loc,
     _parse_outfmt,
+)
+from gblastn_tpu_torch.cli.dbtools import (
     run_aliastool,
     run_blastdbcheck,
     run_blastdbcmd,
@@ -33,14 +34,14 @@ from gblastn_tpu.cli.main import (
     run_makembindex,
     run_windowmasker,
 )
-from gblastn_tpu.io.fasta import (
+from gblastn_tpu_torch.io.fasta import (
     BATCH_SIZE_BLASTN,
     BATCH_SIZE_MEGABLAST,
     FastaRecord,
     batch_records,
     parse_fasta,
 )
-from gblastn_tpu.io.seqdb import SequenceDB
+from gblastn_tpu_torch.io.seqdb import SequenceDB
 
 
 def run_blastn(argv) -> int:
@@ -70,7 +71,7 @@ def run_blastn(argv) -> int:
 
             saved_args = json.loads(text).get("args", {})
         else:
-            from gblastn_tpu.objects.blast4 import strategy_to_args
+            from gblastn_tpu_torch.objects.blast4 import strategy_to_args
 
             saved_args = strategy_to_args(text)
         for k, v in saved_args.items():
@@ -88,7 +89,7 @@ def run_blastn(argv) -> int:
         if options.gapped:
             # fail fast on unsupported gap-cost/scoring combos, with
             # the reference's own message (BLAST_PrintAllowedValues)
-            from gblastn_tpu.stats.tables import gapped_karlin_block
+            from gblastn_tpu_torch.stats.tables import gapped_karlin_block
 
             gapped_karlin_block(
                 options.reward, options.penalty,
@@ -101,9 +102,9 @@ def run_blastn(argv) -> int:
     if args.export_search_strategy:
         # SaveSearchStrategy (blastn_app.cpp:593): a Blast4-request
         # ASN.1 text with the queries embedded as a Bioseq-set
-        from gblastn_tpu.io.encoding import IUPACNA_TO_BLASTNA
-        from gblastn_tpu.objects.asn1 import to_text
-        from gblastn_tpu.objects.blast4 import (
+        from gblastn_tpu_torch.io.encoding import IUPACNA_TO_BLASTNA
+        from gblastn_tpu_torch.objects.asn1 import to_text
+        from gblastn_tpu_torch.objects.blast4 import (
             bioseq,
             bioseq_set,
             blast4_request,
@@ -201,7 +202,7 @@ def run_blastn(argv) -> int:
             "-db (incompatible with -subject)"
         )
     if args.gilist or args.negative_gilist:
-        from gblastn_tpu.io.seqdb import read_gi_list, seq_id_gi
+        from gblastn_tpu_torch.io.seqdb import read_gi_list, seq_id_gi
 
         try:
             gis = read_gi_list(args.gilist or args.negative_gilist)
@@ -262,7 +263,7 @@ def run_blastn(argv) -> int:
     else:
         out = sys.stdout if args.out == "-" else open(args.out, "w")
     try:
-        from gblastn_tpu.format.render import ResultRenderer
+        from gblastn_tpu_torch.format.render import ResultRenderer
 
         html = args.html and kind in (0, 1, 2, 3, 4)
         if html:
@@ -302,7 +303,7 @@ def run_blastn(argv) -> int:
         import signal
         import threading
 
-        from gblastn_tpu.utils.interrupt import SearchInterrupted
+        from gblastn_tpu_torch.utils.interrupt import SearchInterrupted
 
         stop_req = threading.Event()
 
@@ -346,7 +347,7 @@ def run_blastn(argv) -> int:
             file=sys.stderr,
         )
         if args.logfile:
-            from gblastn_tpu.utils.profiling import slog
+            from gblastn_tpu_torch.utils.profiling import slog
 
             with open(args.logfile, "w") as lf:
                 lf.write(slog.report() + "\n")

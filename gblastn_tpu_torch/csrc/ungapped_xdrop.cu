@@ -25,8 +25,16 @@
 // arrays are read in place (no guard-padded window copies); a seed's
 // neighbourhood is a few hundred contiguous bytes that stay in L1/L2 across
 // steps. Accumulation is int32: one NEG_BIG (-2^24) per walk ends it, so it
-// cannot overflow. A warp-per-seed layout with a warp-wide prefix scan over
-// 32 steps at a time is later work.
+// cannot overflow. The least time for the work is set by operations: the
+// walk steps taken x 9 int32 operations each over the card's int32 rate.
+// A step needs the score of its pair (3: the query's mask, the test against
+// the subject code's bit, the reward/penalty select), the sum (1), the
+// X-drop test (2: best - x, compare) and the best with its step (3:
+// compare, two selects); the two byte loads, the addressing and the loop
+// control are not counted. The bytes, each input read once, are an order
+// of magnitude less (chip_smoke.py prints both).
+// A warp-per-seed layout with a warp-wide prefix scan over 32 steps at a
+// time is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>

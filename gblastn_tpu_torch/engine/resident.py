@@ -1,13 +1,10 @@
 """Database state held on the device for the whole run.
 
-``resident_from_reference`` takes the reference package's
-``SequenceDB`` -- the same numpy arrays ``gblastn_tpu`` searches -- and
-uploads the port's resident form once: the 2-bit packed bytes, the
-derived int8 codes, the validity mask, the packed 16-base words and the
-subject bounds. Both packages therefore compute on one database state.
-The result is cached on the db object under a port-only attribute name;
-the JAX package's caches (``_device_cache``, ``_matrix_device_cache``,
-``_device_cache_mat``, ``_host_cache``) are never touched.
+``resident_from_reference`` takes a ``SequenceDB`` (io/seqdb.py, the
+host arrays the search reads) and uploads the port's resident form once:
+the 2-bit packed bytes, the derived int8 codes, the validity mask, the
+packed 16-base words and the subject bounds. The result is cached on the
+db object under ``_torch_resident``, one entry per device.
 """
 from __future__ import annotations
 
@@ -16,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gblastn_tpu.io.seqdb import SequenceDB
+from gblastn_tpu_torch.io.seqdb import SequenceDB
 from gblastn_tpu_torch.device import resolve_device
 from gblastn_tpu_torch.ops.seeding import (
     pack_subject_words,

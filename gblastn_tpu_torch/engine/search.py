@@ -1,11 +1,13 @@
-"""End-to-end megablast search on one device, in PyTorch.
+"""End-to-end megablast and blastn search on one device, in PyTorch.
 
 The port's counterpart of ``gblastn_tpu/engine/search.py``: the same
 host setup (query block, masks, lookup table, derived parameters), then
 the resident seeding path on the chosen device (scan, mini-extension and
-K1; engine.seeding), the host greedy prelim, hitlist collection,
-traceback and ranking. The slice covers one-hit megablast over a
-database held resident on one device; every other search shape raises
+K1; engine.seeding), the device banded-DP filter (K2) in front of the
+host gapped prelim when a batch has enough candidates, hitlist
+collection, traceback and ranking. The port covers one-hit megablast and
+one-hit blastn (``-task blastn``, word 11, DP extension) over a database
+held resident on one device; every other search shape raises
 NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -16,24 +18,28 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gblastn_tpu.hits import (
+from gblastn_tpu_torch.hits import (
     HSPList,
     HitList,
     hitlist_update,
     sort_by_evalue,
     sort_hsplists_by_evalue,
 )
-from gblastn_tpu.io.fasta import FastaRecord
-from gblastn_tpu.io.query import QueryBlock, build_query_block
-from gblastn_tpu.io.seqdb import SequenceDB
-from gblastn_tpu.lut.builder import build_lookup_table, unmasked_locations
-from gblastn_tpu.params.derived import SearchParams, derive_params
-from gblastn_tpu.params.options import SearchOptions, Task
-from gblastn_tpu.stats.karlin import nucl_score_matrix
-from gblastn_tpu.traceback.stage import traceback_from_hsplist
-from gblastn_tpu.utils.profiling import slog
+from gblastn_tpu_torch.io.fasta import FastaRecord
+from gblastn_tpu_torch.io.query import QueryBlock, build_query_block
+from gblastn_tpu_torch.io.seqdb import SequenceDB
+from gblastn_tpu_torch.lut.builder import build_lookup_table, unmasked_locations
+from gblastn_tpu_torch.params.derived import SearchParams, derive_params
+from gblastn_tpu_torch.params.options import SearchOptions, Task
+from gblastn_tpu_torch.stats.karlin import nucl_score_matrix
+from gblastn_tpu_torch.traceback.stage import traceback_from_hsplist
+from gblastn_tpu_torch.utils.profiling import slog
 from gblastn_tpu_torch.device import resolve_device
-from gblastn_tpu_torch.engine.gapped import run_gapped_prelim
+from gblastn_tpu_torch.engine.gapped import (
+    DeviceGappedData,
+    build_device_gapped,
+    run_gapped_prelim,
+)
 from gblastn_tpu_torch.engine.resident import resident_from_reference
 from gblastn_tpu_torch.engine.seeding import SeedingDeviceData, run_seeding
 from gblastn_tpu_torch.ops.seeding import pack_query_nibbles
@@ -80,7 +86,7 @@ class PrelimResult:
 def _refuse_outside_slice(records, options: SearchOptions) -> None:
     """NotImplementedError for every search shape this slice does not
     port, naming the ROADMAP Queue 1 item that does."""
-    from gblastn_tpu.engine.split import chunk_size_for_task
+    from gblastn_tpu_torch.engine.split import chunk_size_for_task
 
     def no(what, item):
         raise NotImplementedError(
@@ -88,7 +94,8 @@ def _refuse_outside_slice(records, options: SearchOptions) -> None:
             f"(ROADMAP Queue 1 item {item})"
         )
 
-    if options.task is not Task.MEGABLAST or options.template_length:
+    if (options.task not in (Task.MEGABLAST, Task.BLASTN)
+            or options.template_length):
         no(f"-task {options.task.value}", 10)
     if options.window_size > 0:
         no("two-hit seeding (window_size > 0)", 10)
@@ -116,6 +123,7 @@ class BatchSetup:
     masks: list[list[tuple[int, int]]] | None
     seed_dev: SeedingDeviceData
     seed_kw: dict           # run_seeding keywords
+    query: torch.Tensor     # uint8[Q] query bytes on the device (K2 reads)
 
 
 def setup_batch(
@@ -155,7 +163,7 @@ def setup_batch(
 
     masks = None
     if options.dust:
-        from gblastn_tpu.masking.dust import query_dust_masks
+        from gblastn_tpu_torch.masking.dust import query_dust_masks
 
         with slog.time("setup.dust"):
             masks = query_dust_masks(
@@ -163,7 +171,7 @@ def setup_batch(
                 options.dust_linker, query_loc=options.query_loc,
             )
     if options.window_masker_db:
-        from gblastn_tpu.masking.winmask import (
+        from gblastn_tpu_torch.masking.winmask import (
             WindowMaskerStats,
             query_window_masks,
         )
@@ -176,7 +184,7 @@ def setup_batch(
         else:
             masks = [sorted(a + b) for a, b in zip(masks, wm_masks)]
     if options.lcase_masking:
-        from gblastn_tpu.masking.lcase import query_lcase_masks
+        from gblastn_tpu_torch.masking.lcase import query_lcase_masks
 
         lc_masks = query_lcase_masks(qblock, records)
         if masks is None:
@@ -226,7 +234,7 @@ def setup_batch(
     # approximate-ungapped gate data (s_NuclUngappedExtend semantics):
     # the replay demotes exact-passing seeds whose byte-quantized score
     # misses the reduced cutoff, as the reference does for word >= 11
-    from gblastn_tpu.params.derived import nucl_score_table_packed
+    from gblastn_tpu_torch.params.derived import nucl_score_table_packed
 
     approx_ctx = {
         "query": qbuf,
@@ -267,7 +275,33 @@ def setup_batch(
         x_dropoffs=x_dropoffs,
         approx_ctx=approx_ctx,
     )
-    return BatchSetup(qblock, params, masks, seed_dev, seed_kw)
+    return BatchSetup(qblock, params, masks, seed_dev, seed_kw, q_dev)
+
+
+def _build_gapped_filter(batch: BatchSetup) -> DeviceGappedData | None:
+    """Device banded-DP gapped pre-filter context, or None when off.
+
+    GBLASTN_TPU_GAPPED_FILTER: auto (default: on when the search runs on
+    a CUDA device), 1 (force; on the CPU the plain version runs), 0
+    (off). Queries longer than the kernel's row budget disable the
+    filter (every candidate would flag FLAG_ROWS and fall back to host
+    anyway)."""
+    mode = os.environ.get("GBLASTN_TPU_GAPPED_FILTER", "auto")
+    if mode in ("0", "off"):
+        return None
+    if mode == "auto" and batch.query.device.type != "cuda":
+        return None
+    if not batch.params.options.gapped:
+        return None
+    maxlen = max((c.length for c in batch.qblock.contexts), default=0)
+    rows = 256
+    while rows < maxlen + 192:
+        rows *= 2
+    if rows > 4096:
+        return None
+    return build_device_gapped(
+        batch.params, batch.query, batch.seed_dev.resident.subject2, rows
+    )
 
 
 def prelim_search(
@@ -281,13 +315,22 @@ def prelim_search(
 
     ``interrupt_fn`` (optional, () -> bool) is polled at stage
     boundaries; returning True raises SearchInterrupted."""
-    from gblastn_tpu.utils.interrupt import check
+    from gblastn_tpu_torch.utils.interrupt import check
 
     check(interrupt_fn)
     batch = setup_batch(records, db, options, device)
     qblock, params, masks = batch.qblock, batch.params, batch.masks
     with slog.time("device.seeding"):
         init = run_seeding(batch.seed_dev, **batch.seed_kw)
+    # the JAX package's engage rule (gblastn_tpu/engine/search.py:930):
+    # the filter runs from GBLASTN_TPU_GAPPED_FILTER_MIN candidates up,
+    # or always when GBLASTN_TPU_GAPPED_FILTER=1
+    filter_min = int(os.environ.get("GBLASTN_TPU_GAPPED_FILTER_MIN",
+                                    "2000"))
+    device_gapped = None
+    if (len(init) >= filter_min
+            or os.environ.get("GBLASTN_TPU_GAPPED_FILTER") == "1"):
+        device_gapped = _build_gapped_filter(batch)
     slog.diagnostics.good_init_extends += len(init)
     check(interrupt_fn)
 
@@ -295,10 +338,11 @@ def prelim_search(
         with slog.time("host.prelim_gapped"):
             prelim_lists = run_gapped_prelim(
                 init, qblock, db.get_sequence_2na_cached, db.starts,
-                params,
+                params, device_gapped=device_gapped,
+                subject_lengths=db.lengths,
             )
     else:
-        from gblastn_tpu.engine.ungapped import run_ungapped_prelim
+        from gblastn_tpu_torch.engine.ungapped import run_ungapped_prelim
 
         with slog.time("host.prelim_ungapped"):
             prelim_lists = run_ungapped_prelim(
@@ -315,7 +359,7 @@ def prelim_search(
     ]
     besthit = culling = None
     if options.best_hit_overhang > 0 or options.best_hit_score_edge > 0:
-        from gblastn_tpu.hspfilters import BestHitWriter
+        from gblastn_tpu_torch.hspfilters import BestHitWriter
 
         besthit = BestHitWriter(
             qblock.num_queries,
@@ -323,13 +367,13 @@ def prelim_search(
             options.best_hit_score_edge or 0.1,
         )
     elif options.culling_limit > 0:
-        from gblastn_tpu.hspfilters import CullingWriter
+        from gblastn_tpu_torch.hspfilters import CullingWriter
 
         culling = CullingWriter(len(qblock.contexts), options.culling_limit)
 
     with slog.time("host.collect"):
         if besthit is not None or culling is not None:
-            from gblastn_tpu.hits import sort_by_score
+            from gblastn_tpu_torch.hits import sort_by_score
 
             writer = besthit if besthit is not None else culling
             for lst in prelim_lists:
@@ -371,7 +415,7 @@ def finish_search(
     interrupt_fn=None,
 ) -> BlastResults:
     """Traceback + final ranking over a prelim result (host only)."""
-    from gblastn_tpu.utils.interrupt import check
+    from gblastn_tpu_torch.utils.interrupt import check
 
     qblock = prelim.qblock
     params = prelim.params
@@ -389,7 +433,7 @@ def finish_search(
                 lst, qblock, subj_cache[lst.oid], matrix, params
             )
         else:
-            from gblastn_tpu.engine.ungapped import (
+            from gblastn_tpu_torch.engine.ungapped import (
                 finish_ungapped_hsplist,
             )
 
@@ -450,7 +494,7 @@ def search(
     device: str | torch.device = "cuda",
     interrupt_fn=None,
 ) -> BlastResults:
-    """Run a complete gapped megablast search end to end on ``device``
+    """Run a complete megablast or blastn search end to end on ``device``
     ("cuda" or "cpu"; "cuda" without a card raises)."""
     return finish_search(
         prelim_search(records, db, options, device, interrupt_fn),

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gblastn_tpu.utils.profiling import slog
+from gblastn_tpu_torch.utils.profiling import slog
 from gblastn_tpu_torch.engine.resident import ResidentDB
 from gblastn_tpu_torch.ops.seeding import seeding_scan_mini
 from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
@@ -65,7 +65,7 @@ def sort_by_score_order(
 def _native_diag_order(q_off, s_off, oid, diag_mask=0):
     """Replay key order via native comparator sort (== np.lexsort
     ((q_off, s_off, diag, oid)) exactly); None if the lib is absent."""
-    from gblastn_tpu.native import get_lib
+    from gblastn_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None:
@@ -90,7 +90,7 @@ def _native_diag_filter(
     diag_mask=0,
 ):
     """Run the native replay loop; None if the native lib is absent."""
-    from gblastn_tpu.native import get_lib
+    from gblastn_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None:
@@ -300,7 +300,7 @@ def _finish_init_hits(
         # last_hit from the seed end either way)
         need = score32 >= cutoff
         if need.any():
-            from gblastn_tpu.engine.approx import compute_approx_info
+            from gblastn_tpu_torch.engine.approx import compute_approx_info
 
             sub_st = np.asarray(subject_starts, np.int64)[oid]
             sub_en = np.asarray(approx_ctx["subject_ends"],

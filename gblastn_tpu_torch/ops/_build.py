@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled at first use with ``nvcc`` into one
-shared library with a plain C interface under ``build/gblastn_tpu_torch/``
-at the repository root, and loaded with ``ctypes``. No PyTorch headers are
-included, so a build takes seconds. Nothing here runs at import time:
-``load()`` is called by a kernel wrapper when it first sees a CUDA tensor.
+Every ``csrc/*.cu`` file is compiled at first use with ``nvcc`` -- one
+``nvcc`` process per source, all started together -- and the objects are
+linked into one shared library with a plain C interface under
+``build/gblastn_tpu_torch/`` at the repository root, loaded with
+``ctypes``. No PyTorch headers are included, so a build takes seconds.
+Nothing here runs at import time: ``load()`` is called by a kernel
+wrapper when it first sees a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -19,10 +21,9 @@ _SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "gblastn_tpu_torch"
 _LIB_NAME = "libgblastn_torch_kernels.so"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas=-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lib = None
@@ -54,16 +55,44 @@ def build() -> Path:
     ):
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{build_log}"
+    nvcc = _nvcc()
+    tag = f"tmp.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, lib_path)
+        for s, o in zip(sources, objs)
+    ]
+    logs, failed = [], []
+    try:
+        for s, pr in zip(sources, procs):
+            out, _ = pr.communicate(timeout=600)
+            logs.append(f"== {s.name}\n{out}")
+            if pr.returncode != 0:
+                failed.append(f"{s.name} ({pr.returncode})")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    build_log = "".join(logs)
+    tmp = lib_path.with_suffix(f".so.{tag}")
+    try:
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        tmp.unlink(missing_ok=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib_path
 
 
@@ -72,12 +101,20 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.gblastn_ungapped_xdrop
+        fn = lib.gblastn_ungapped_xdrop          # K1
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 8        # query .. max_r
             + [ctypes.c_int]             # n
             + [ctypes.c_void_p] * 5      # five outputs
+            + [ctypes.c_void_p]          # stream
+        )
+        fn = lib.gblastn_gapped_band             # K2
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 8        # query, subject, matrix, a0 .. x
+            + [ctypes.c_int] * 5         # n_jobs, n_right, rows, open, ext
+            + [ctypes.c_void_p] * 2      # score, flags
             + [ctypes.c_void_p]          # stream
         )
         _lib = lib

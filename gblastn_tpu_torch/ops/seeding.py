@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gblastn_tpu.io.encoding import BLASTNA_TO_NCBI4NA
+from gblastn_tpu_torch.io.encoding import BLASTNA_TO_NCBI4NA
 
 
 def unpack_2na(packed: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gblastn_tpu.io.encoding import BLASTNA_TO_NCBI4NA
+from gblastn_tpu_torch.io.encoding import BLASTNA_TO_NCBI4NA
 
 NEG_BIG = -(1 << 24)
 _CHUNK = 128          # plain version: steps scored per loop iteration
@@ -95,10 +95,11 @@ def _scores(qp: torch.Tensor, scode: torch.Tensor, c: list[int]):
     )
 
 
-def _walk_ref(query, subject, q0, s0, left, max_steps, x, c):
+def _walk_ref(query, subject, q0, s0, left, max_steps, x, table):
     """(best, best_pos, stop_step) of one direction for every seed, in
     int64, scoring _CHUNK steps per iteration until every walk stopped
-    (each one does: the step past its budget scores NEG_BIG)."""
+    (each one does: the step past its budget scores NEG_BIG). ``table``
+    is the closed-form score of (packed query byte * 4 + subject code)."""
     n = q0.shape[0]
     dev = q0.device
     Q, S = query.shape[0], subject.shape[0]
@@ -109,56 +110,67 @@ def _walk_ref(query, subject, q0, s0, left, max_steps, x, c):
     act = torch.arange(n, device=dev)
     steps = torch.arange(1, _CHUNK + 1, device=dev)
     base = 0
+    # the live seeds' own arrays, compacted with ``act``
+    qa, sa, ma, xa = q0, s0, max_steps, x
     while act.numel():
         j = base + steps                                   # [K]
         off = -j if left else j - 1
-        qi = (q0[act, None] + off).clamp(0, Q - 1)
-        si = (s0[act, None] + off).clamp(0, S - 1)
-        sc = _scores(query[qi].long(), subject[si].long(), c)
-        sc = torch.where(j[None, :] <= max_steps[act, None], sc, NEG_BIG)
-        cs = run[act, None] + torch.cumsum(sc, dim=1)
-        b0 = best[act, None]
-        prev = torch.cat(
-            [b0, torch.maximum(b0, torch.cummax(cs, dim=1).values[:, :-1])],
-            dim=1,
-        )
-        dropped = cs < prev - x[act, None]
+        qi = (qa[:, None] + off).clamp_(0, Q - 1)
+        si = (sa[:, None] + off).clamp_(0, S - 1)
+        sc = table[query[qi].long() * 4 + subject[si].long().clamp_(0, 3)]
+        sc.masked_fill_(j[None, :] > ma[:, None], NEG_BIG)
+        cs = torch.cumsum(sc, dim=1).add_(run[act, None])
+        b0 = best[act]
+        prev = torch.cat([b0[:, None], torch.maximum(
+            b0[:, None], torch.cummax(cs, dim=1).values[:, :-1])], dim=1)
+        dropped = cs < prev - xa[:, None]
         any_d = dropped.any(dim=1)
         first = torch.where(
             any_d, torch.argmax(dropped.to(torch.int32), dim=1), _CHUNK
         )
         # steps before the drop; the dropping step cannot raise the best
         live = steps[None, :] - 1 < first[:, None]
-        cand = torch.where(live, cs, torch.iinfo(torch.int64).min)
+        cand = cs.masked_fill(~live, torch.iinfo(torch.int64).min)
         cb = cand.max(dim=1).values
+        # the first step reaching it: best moves only on a greater sum
         cpos = torch.argmax((cand == cb[:, None]).to(torch.int32), dim=1)
-        up = cb > best[act]
-        best[act] = torch.where(up, cb, best[act])
+        up = cb > b0
+        best[act] = torch.where(up, cb, b0)
         pos[act] = torch.where(up, base + cpos + 1, pos[act])
         stop[act[any_d]] = base + first[any_d] + 1
         run[act] = cs[:, -1]
-        act = act[~any_d]
+        keep = ~any_d
+        act, qa, sa, ma, xa = (t[keep] for t in (act, qa, sa, ma, xa))
         base += _CHUNK
     return best, pos, stop
 
 
 def ungapped_extend_window_ref(query_packed, subject2, table64, q_off,
-                               s_off, x_drop, max_l, max_r):
+                               s_off, x_drop, max_l, max_r,
+                               return_steps: bool = False):
     """Plain PyTorch version of K1 (same arguments and results as
-    ``ungapped_extend_window``)."""
+    ``ungapped_extend_window``). With ``return_steps`` it also returns
+    the steps each seed's two walks scored (int64[n]), the work count
+    behind K1's bound."""
     c = [int(v) for v in table64[64:70].tolist()]
+    codes = torch.arange(256, device=q_off.device)
+    table = _scores(codes[:, None], torch.arange(4, device=q_off.device),
+                    c).reshape(-1)
     q0 = q_off.long()
     s0 = s_off.long()
     x = x_drop.long()
     ml = max_l.long()
     mr = max_r.long()
     l_best, l_pos, l_stop = _walk_ref(query_packed, subject2, q0, s0,
-                                      True, ml, x, c)
+                                      True, ml, x, table)
     r_best, r_pos, r_stop = _walk_ref(query_packed, subject2, q0, s0,
-                                      False, mr, x, c)
+                                      False, mr, x, table)
     flags = 2 * (l_stop > ml).long() + 4 * (r_stop > mr).long()
     outs = (q0 - l_pos, s0 - l_pos, l_pos + r_pos, l_best + r_best, flags)
-    return tuple(o.to(torch.int32) for o in outs)
+    outs = tuple(o.to(torch.int32) for o in outs)
+    if return_steps:
+        return outs + (l_stop + r_stop,)
+    return outs
 
 
 def _check_kernel_args(query_packed, subject2, table64, seeds):

@@ -1,4 +1,5 @@
-"""K1 on the card against its plain version, on the same CUDA tensors.
+"""K1 and K2 on the card against their plain versions, on the same CUDA
+tensors.
 
 Needs a CUDA card (skips elsewhere). Imports no JAX, so it also runs on a
 machine without it:
@@ -57,3 +58,67 @@ def test_kernel_bit_equal_to_plain_version():
     assert ungapped_extend_window.launches == before + 1
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_gapped_kernel_bit_equal_to_plain_version():
+    """K2 against its plain version on a small random job set: both
+    scorings, planted stretches with a long insertion (band edge), N in
+    the query, a short row budget (FLAG_ROWS) and empty jobs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.engine.gapped import device_gapped_params
+    from gblastn_tpu_torch.ops.gapped import (
+        banded_gapped_scores,
+        banded_gapped_scores_ref,
+        gapped_jobs,
+    )
+    from gblastn_tpu_torch.params.options import (
+        blastn_options,
+        megablast_options,
+    )
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(11)
+    S, Q, n = 40000, 30000, 600
+    sub = rng.integers(0, 4, S).astype(np.int8)
+    q = rng.integers(0, 4, Q).astype(np.uint8)
+    qs = rng.integers(600, Q - 600, n)
+    ss = rng.integers(600, S - 600, n)
+    for k in range(0, n, 2):
+        L = 400
+        seg = sub[ss[k]: ss[k] + L].astype(np.uint8).copy()
+        mut = rng.random(L) < 0.03
+        seg[mut] = rng.integers(0, 4, int(mut.sum()))
+        if k % 6 == 0:
+            seg = np.concatenate([seg[:150], rng.integers(0, 4, 70).astype(
+                np.uint8), seg[150:]])
+        qs[k] = min(qs[k], Q - len(seg) - 1)
+        q[qs[k]: qs[k] + len(seg)] = seg
+    q[rng.random(Q) < 0.01] = 14
+    q_lo = np.maximum(qs - rng.integers(0, 600, n), 0)
+    q_hi = np.minimum(qs + rng.integers(0, 600, n), Q)
+    s_lo = np.maximum(ss - rng.integers(0, 600, n), 0)
+    s_hi = np.minimum(ss + rng.integers(0, 600, n), S)
+    q_hi[1::7] = qs[1::7]
+    s_lo[2::9] = ss[2::9]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for opts, gxd in ((blastn_options(), 33), (megablast_options(), 27)):
+        mat, _dbl, go, ge, xd = device_gapped_params(opts, gxd)
+        x = np.where(rng.random(n) < 0.1, 400, xd).astype(np.int32)
+        jobs = gapped_jobs(t(qs), t(ss), t(q_lo), t(q_hi), t(s_lo),
+                           t(s_hi), t(x))
+        args = (t(q), t(sub), t(mat), jobs)
+        kw = dict(rows=256, gap_open=go, gap_extend=ge)
+        before = banded_gapped_scores.launches
+        got = banded_gapped_scores(*args, **kw)
+        want = banded_gapped_scores_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert banded_gapped_scores.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+        flags = want[1].cpu().numpy()
+        assert (flags & 1).any() and (flags & 2).any()

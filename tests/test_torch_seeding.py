@@ -17,6 +17,9 @@ from gblastn_tpu.lut.builder import build_lookup_table, unmasked_locations
 from gblastn_tpu.ops import seeding as jx
 from gblastn_tpu_torch.ops import seeding as pt
 
+# the plain versions run many small ops: on the CPU one thread beats a pool
+torch.set_num_threads(1)
+
 
 def _rand_seq(rng, n):
     return "".join("ACGT"[i] for i in rng.integers(0, 4, n))

@@ -19,6 +19,9 @@ from gblastn_tpu_torch.ops.ungapped import (
     ungapped_extend_window_ref,
 )
 
+# the plain versions run many small ops: on the CPU one thread beats a pool
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def problem():
