@@ -16,7 +16,13 @@ counter set to 0 just before it and read just after:
 3. blastn word 11, config 2 of bench.py (200 x 1.5 kb reads against the
    same 4.6 Mb genome), through search() with the device gapped filter
    against the same search without it, and through the CLI: K1 and K2;
-   tabular bytes equal to the CPU run.
+   tabular bytes equal to the CPU run;
+4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
+   the path of the table gather P1-P3, which holds the gather bit-equal
+   to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
+   16 Mi probes) in both of its modes, checks the staged mode's refusal
+   of a 2 MiB table and times each; and K2's parity check of
+   tools.prof_gapped.
 
 Any failure raises (exit code != 0). The last three lines of standard
 output are the card's name and power limit, the kernels' JSON record and
@@ -34,12 +40,17 @@ from pathlib import Path
 
 import numpy as np
 
+from gblastn_tpu_torch.tools.workloads import (  # bench.py's recipe, sizes
+    BIG_GENOME_LEN,
+    GENOME_LEN,
+    NUM_QUERIES,
+    QUERY_LEN,
+    SEED,
+    make_genome,
+    sample_reads,
+)
+
 REPO = Path(__file__).resolve().parent
-SEED = 20260816
-GENOME_LEN = 4_600_000          # bench.py's workload sizes
-NUM_QUERIES = 500
-QUERY_LEN = 1000
-BIG_GENOME_LEN = 300_000_000
 BIG_BATCH = 500
 C2_QUERIES = 200
 C2_QUERY_LEN = 1500
@@ -48,6 +59,8 @@ K1_SOURCE = "gblastn_tpu_torch/csrc/ungapped_xdrop.cu"
 K1_REPLACES = "gblastn_tpu/ops/pallas_ungapped.py:161"
 K2_SOURCE = "gblastn_tpu_torch/csrc/gapped_band.cu"
 K2_REPLACES = "gblastn_tpu/ops/pallas_gapped.py:83"
+GATHER_SOURCE = "gblastn_tpu_torch/csrc/table_gather.cu"
+GATHER_REPLACES = "tools/prof_scan_parts.py:164,183,203"
 
 # The card's peak rates for the bounds (NVIDIA H100 SXM data sheet at
 # 700 W): 3.35 TB/s of HBM, and int32 outside the tensor cores at 64
@@ -66,46 +79,6 @@ K2_OPS_PER_CELL = 18      # diag 1, Ht 1, u 3, scan 1, E 3, H 1, thr 2,
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def make_genome(rng, n):
-    """bench.py's _make_genome."""
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    return bases[rng.integers(0, 4, n)].tobytes().decode()
-
-
-def sample_reads(rng, genome, num, qlen, prefix):
-    """bench.py's _sample_reads (the same draws in the same order), as
-    (sequence name, sequence) pairs, and each read's source start."""
-    reads, starts = [], []
-    for i in range(num):
-        start = int(rng.integers(0, len(genome) - qlen))
-        read = list(genome[start: start + qlen])
-        for p in np.flatnonzero(rng.random(qlen) < 0.02):
-            read[p] = "ACGT"[(("ACGT".index(read[p])) + 1 +
-                              int(rng.integers(0, 3))) % 4]
-        seq = "".join(read)
-        if rng.random() < 0.3:  # occasional short deletion
-            cut = int(rng.integers(100, qlen - 100))
-            seq = seq[:cut] + seq[cut + 3:]
-        reads.append((f"{prefix}{i}", seq))
-        starts.append(start)
-    return reads, starts
-
-
-def cuda_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def nbytes(*tensors):
@@ -130,6 +103,7 @@ def compare_k1(args, label, card, reps):
         ungapped_extend_window,
         ungapped_extend_window_ref,
     )
+    from gblastn_tpu_torch.tools.timing import call_ms
 
     got = ungapped_extend_window(*args)
     *want, steps = ungapped_extend_window_ref(*args, return_steps=True)
@@ -140,8 +114,9 @@ def compare_k1(args, label, card, reps):
     )
     check(err == 0, f"K1 differs from its plain version on {label} "
                     f"(max abs err {err})")
-    ms = cuda_ms(lambda: ungapped_extend_window(*args), reps)
-    plain_ms = cuda_ms(lambda: ungapped_extend_window_ref(*args), 3)
+    ms = call_ms(lambda: ungapped_extend_window(*args), reps, "cuda")
+    plain_ms = call_ms(lambda: ungapped_extend_window_ref(*args), 3,
+                       "cuda")
     n = args[3].numel()
     steps = int(steps.sum())
     # query, subject, table and 5 int32 per seed in; 5 int32 per seed out
@@ -164,6 +139,7 @@ def compare_k2(args, kw, label, card, reps):
         banded_gapped_scores,
         banded_gapped_scores_ref,
     )
+    from gblastn_tpu_torch.tools.timing import call_ms
 
     got = banded_gapped_scores(*args, **kw)
     ws, wf, cells = banded_gapped_scores_ref(*args, **kw,
@@ -173,8 +149,9 @@ def compare_k2(args, kw, label, card, reps):
               for g, w in zip(got, (ws, wf)))
     check(err == 0, f"K2 differs from its plain version on {label} "
                     f"(max abs err {err})")
-    ms = cuda_ms(lambda: banded_gapped_scores(*args, **kw), reps)
-    plain_ms = cuda_ms(lambda: banded_gapped_scores_ref(*args, **kw), 2)
+    ms = call_ms(lambda: banded_gapped_scores(*args, **kw), reps, "cuda")
+    plain_ms = call_ms(lambda: banded_gapped_scores_ref(*args, **kw), 2,
+                       "cuda")
     jobs = args[3]
     J = len(jobs)
     cells = int(cells.sum())
@@ -191,6 +168,31 @@ def compare_k2(args, kw, label, card, reps):
           f"{n_rows}, bit-equal, kernel {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})  [{card}]")
     return err, ms, plain_ms, bound_ms, by
+
+
+def gather_entry(recs, launches):
+    """The kernels line's table_gather entry from prof_scan_parts' records:
+    times and bound at P3's shape in the global mode, the other shapes
+    and the staged mode beside them."""
+    p3 = recs["p3_global"]
+    entry = {"name": "table_gather", "route": "cuda",
+             "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
+             "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+             "ms": p3["ms"], "plain_ms": p3["plain_ms"],
+             "bound_ms": p3["bound_ms"], "bound_by": p3["bound_by"],
+             "library_ms": p3["library_ms"], "ms_graph": p3["ms_graph"],
+             "library_ms_graph": p3["library_ms_graph"],
+             "launches_by_path": {"prof_scan_parts": launches}}
+    for key, r in recs.items():
+        if key != "p3_global":
+            tag = key.replace("huge", "16mi")
+            entry.update({f"ms_{tag}": r["ms"],
+                          f"library_ms_{tag}": r["library_ms"],
+                          f"ms_graph_{tag}": r["ms_graph"],
+                          f"library_ms_graph_{tag}": r["library_ms_graph"],
+                          f"bound_ms_{tag}": r["bound_ms"]})
+    return entry
 
 
 def random_k1_args(device, n=32768, seed=SEED + 1):
@@ -358,10 +360,13 @@ def main() -> int:
     from gblastn_tpu_torch.io.fasta import BATCH_SIZE_BLASTN, batch_records
     from gblastn_tpu_torch.ops import _build
     from gblastn_tpu_torch.ops import gapped as og
+    from gblastn_tpu_torch.ops import gather as ogt
     from gblastn_tpu_torch.ops import ungapped as ung
+    from gblastn_tpu_torch.tools import prof_gapped, prof_scan_parts
 
     k1 = ung.ungapped_extend_window
     k2 = og.banded_gapped_scores
+    k3 = ogt.table_gather
 
     # 1. the card
     smi = subprocess.run(
@@ -415,6 +420,7 @@ def main() -> int:
     # main path
     plain1 = ung.ungapped_extend_window_ref
     plain2 = og.banded_gapped_scores_ref
+    plain3 = ogt.table_gather_ref
 
     def guarded1(*args, **kw):
         check(not any(a.is_cuda for a in args),
@@ -426,13 +432,49 @@ def main() -> int:
               "a CUDA tensor reached the plain K2 on the main path")
         return plain2(query, *args, **kw)
 
+    def guarded3(tab, idx):
+        # the wrapper's dispatch; prof_scan_parts compares with the plain
+        # version it imported, which this leaves alone
+        check(not tab.is_cuda,
+              "a CUDA tensor reached the plain table gather on a path")
+        return plain3(tab, idx)
+
     def guard(on):
         ung.ungapped_extend_window_ref = guarded1 if on else plain1
         og.banded_gapped_scores_ref = guarded2 if on else plain2
+        ogt.table_gather_ref = guarded3 if on else plain3
 
     def counts_zero():
         k1.launches = 0
         k2.launches = 0
+        k3.launches = 0
+
+    # 4b. the path of P1-P3: the scan profiler in full, which holds the
+    # table gather bit-equal to its plain version and tab[idx] at P1-P3's
+    # shapes (and 16 Mi probes) in both modes, checks the staged mode's
+    # refusal of the 2 MiB table and times each; then K2's parity check
+    # of prof_gapped (its plain version runs there by design)
+    guard(True)
+    counts_zero()
+    t0 = time.time()
+    psp = prof_scan_parts.profile(["--device", "cuda"])
+    psp_launches = (k1.launches, k2.launches, k3.launches)
+    check(psp["ok"], "prof_scan_parts found a table_gather result not "
+                     "bit-equal, or the staged mode took the 2 MiB table")
+    guard(False)
+    check(psp_launches[2] > 0,
+          "table_gather was not launched on the prof_scan_parts path")
+    t_psp = time.time() - t0
+    counts_zero()
+    t0 = time.time()
+    check(prof_gapped.main(["--parity", "--device", "cuda"]) == 0,
+          "prof_gapped --parity: K2 differs from its plain version")
+    pg_launches = (k1.launches, k2.launches, k3.launches)
+    check(pg_launches[1] == 1, "prof_gapped --parity did not launch K2")
+    print(f"profilers: prof_scan_parts {t_psp:.1f} s, launches K1 "
+          f"{psp_launches[0]} K2 {psp_launches[1]} table_gather "
+          f"{psp_launches[2]}; prof_gapped --parity {time.time() - t0:.1f} "
+          f"s, launches K2 {pg_launches[1]}  [{card}]")
 
     # 5. config 1 end to end through the CLI (megablast: K1; fewer than
     # 2000 gapped candidates, so K2 stays off)
@@ -657,8 +699,9 @@ def main() -> int:
           f"{len(big_reads)} reads, all loci found, peak device memory "
           f"{peak / 2**30:.2f} GiB  [{card}]")
 
-    # the slice's main path is config 2 through the CLI; K1 and K2 are
-    # timed at its shapes (K1 also at config 1's)
+    # slice 2's main path is config 2 through the CLI; K1 and K2 are
+    # timed at its shapes (K1 also at config 1's); the table gather's
+    # path is prof_scan_parts, and it is timed at P3's shape
     paths = {"config1_cli": c1_launches, "config2_search": s_launch,
              "config2_cli": c2_launches}
     k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
@@ -676,7 +719,9 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": c2_launches[1],
          "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],
          "bound_ms": k2_c2[3], "bound_by": k2_c2[4], "library_ms": None,
-         "launches_by_path": {p: c[1] for p, c in paths.items()}},
+         "launches_by_path": {**{p: c[1] for p, c in paths.items()},
+                              "prof_gapped_parity": pg_launches[1]}},
+        gather_entry(psp["gather"], psp_launches[2]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

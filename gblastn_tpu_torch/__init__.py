@@ -7,7 +7,8 @@ CUDA C++ for Hopper (sm_90a). The host stages (query setup, lookup
 table, gapped extension, traceback, formatting) are the port's own
 copies of the JAX package's JAX-free modules, at the same relative
 paths; this package imports ``torch`` and never ``jax`` or
-``gblastn_tpu``.
+``gblastn_tpu``. Its profilers (``gblastn_tpu_torch.tools``) add a
+third CUDA kernel, the table gather of the scan profiler.
 
 Public API:
 

@@ -117,5 +117,13 @@ def load():
             + [ctypes.c_void_p] * 2      # score, flags
             + [ctypes.c_void_p]          # stream
         )
+        fn = lib.gblastn_table_gather            # P1-P3
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,       # tab, n_tab
+            ctypes.c_void_p, ctypes.c_int,       # idx, n
+            ctypes.c_void_p, ctypes.c_int,       # out, staged
+            ctypes.c_void_p,                     # stream
+        ]
         _lib = lib
     return _lib

@@ -122,3 +122,55 @@ def test_gapped_kernel_bit_equal_to_plain_version():
             assert g.is_cuda and torch.equal(g, w)
         flags = want[1].cpu().numpy()
         assert (flags & 1).any() and (flags & 2).any()
+
+
+@pytest.mark.cuda
+def test_table_gather_bit_equal_to_plain_version():
+    """P1-P3: both modes against the plain version at P1's and P3's
+    shapes; the staged mode at a 128 KiB table (above the 48 KiB that
+    needs the shared-memory opt-in) and its refusal at 2 MiB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.gather import table_gather, table_gather_ref
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(1)
+    tab = torch.from_numpy(rng.integers(0, 100, 4 ** 12 // 32,
+                                        np.int32)).to(dev)
+    tab_s = tab[:32768]
+    for shape in ((8, 128), (2048, 128), (1_000_003,)):
+        idx = torch.from_numpy(rng.integers(0, tab.numel(), shape,
+                                            np.int32)).to(dev)
+        for t, i, staged in ((tab, idx, False),
+                             (tab_s, idx & 32767, True)):
+            before = table_gather.launches
+            got = table_gather(t, i, staged=staged)
+            want = table_gather_ref(t, i)
+            torch.cuda.synchronize()
+            assert table_gather.launches == before + 1
+            assert got.is_cuda and got.shape == i.shape
+            assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        table_gather(tab, idx, staged=True)
+
+
+@pytest.mark.cuda
+def test_table_gather_counts_the_kernels_a_graph_runs():
+    """A launch recorded while a CUDA graph is captured counts in
+    ``captured``, not ``launches``; graph_ms adds it to ``launches`` at
+    each of its two replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.gather import table_gather
+    from gblastn_tpu_torch.tools.timing import graph_ms
+
+    dev = torch.device("cuda:0")
+    tab = torch.arange(4096, dtype=torch.int32, device=dev)
+    idx = torch.arange(0, 4096, 3, dtype=torch.int32, device=dev)
+    launches, captured = table_gather.launches, table_gather.captured
+    ms = graph_ms(lambda: table_gather(tab, idx), reps=10,
+                  counted=(table_gather,))
+    assert ms > 0
+    assert table_gather.captured == captured + 10
+    # one warm-up call, then two replays of ten
+    assert table_gather.launches == launches + 1 + 2 * 10

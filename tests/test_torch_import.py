@@ -1,6 +1,6 @@
-"""gblastn_tpu_torch imports and searches with ``jax``, ``gblastn_tpu``
-and ``bench`` blocked, and asking for a CUDA device without a card raises
-instead of falling back."""
+"""gblastn_tpu_torch imports and searches with ``jax``, ``gblastn_tpu``,
+``bench`` and ``chip_smoke`` blocked, and asking for a CUDA device without
+a card raises instead of falling back."""
 from __future__ import annotations
 
 import os
@@ -15,15 +15,18 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 _PROG = r"""
+import importlib
 import os
 import sys
-for name in ("jax", "gblastn_tpu", "bench"):
+for name in ("jax", "gblastn_tpu", "bench", "chip_smoke"):
     sys.modules[name] = None       # any import of them now raises
 import numpy as np
 import torch
 
 import gblastn_tpu_torch
 from gblastn_tpu_torch.cli.main import main
+for tool in ("prof_scan_parts", "prof_scan_rate", "prof_gapped", "prof_e2e"):
+    importlib.import_module("gblastn_tpu_torch.tools." + tool)
 
 rng = np.random.default_rng(5)
 genome = "".join("ACGT"[i] for i in rng.integers(0, 4, 8000))
@@ -56,16 +59,18 @@ else:
             assert "is_available" in str(e), e
         else:
             raise SystemExit("cuda without a card did not raise")
-for name in ("jax", "gblastn_tpu", "bench"):
+for name in ("jax", "gblastn_tpu", "bench", "chip_smoke"):
     assert sys.modules[name] is None, name
     assert not [m for m in sys.modules if m.startswith(name + ".")], name
 print("PORT-OK")
 """
 
-# an import of the JAX package or of bench.py, in any form
+# an import of the JAX package, of bench.py or of chip_smoke.py, in any
+# form
 _FORBIDDEN = re.compile(
     r"\bgblastn_tpu\.\w|\bfrom gblastn_tpu\s|\bimport gblastn_tpu\b(?!_)"
     r"|\bimport bench\b|\bfrom bench\s|^\s*(import|from) jax\b"
+    r"|\bimport chip_smoke\b|\bfrom chip_smoke\s"
 )
 
 
@@ -80,25 +85,31 @@ def test_port_runs_with_jax_blocked():
 
 @pytest.mark.parametrize("config", [1, 2])
 def test_smoke_workload_matches_bench(config):
-    """chip_smoke.py's own copies of bench.py's genome and read recipe
-    give bench.py's genome and reads (config 1: the first 500-read set
-    after the genome; config 2: the blastn reads from seed + 2), here on
-    a shorter genome and fewer reads."""
+    """The port's copies of bench.py's genome and read recipe
+    (gblastn_tpu_torch/tools/workloads.py, which chip_smoke.py and the
+    profilers use) give bench.py's genome and reads (config 1: the first
+    500-read set after the genome; config 2: the blastn reads from seed +
+    2), here on a shorter genome and fewer reads."""
     import bench
     import chip_smoke
+    from gblastn_tpu_torch.tools import workloads
 
     seed = chip_smoke.SEED
-    assert seed == bench.SEED
+    assert seed == workloads.SEED == bench.SEED
+    for name in ("GENOME_LEN", "NUM_QUERIES", "QUERY_LEN",
+                 "BIG_GENOME_LEN"):
+        assert getattr(workloads, name) == getattr(bench, name), name
+    assert chip_smoke.make_genome is workloads.make_genome
     num, qlen, prefix = ((20, chip_smoke.QUERY_LEN, "w0_") if config == 1
                          else (12, chip_smoke.C2_QUERY_LEN, "b"))
     assert qlen == (bench.QUERY_LEN if config == 1 else 1500)
     rng_g, rng_w = np.random.default_rng(seed), np.random.default_rng(seed)
-    genome = chip_smoke.make_genome(rng_g, 60_000)
+    genome = workloads.make_genome(rng_g, 60_000)
     assert genome == bench._make_genome(rng_w, 60_000)
     if config == 2:
         rng_g = np.random.default_rng(seed + 2)
         rng_w = np.random.default_rng(seed + 2)
-    pairs, starts = chip_smoke.sample_reads(rng_g, genome, num, qlen, prefix)
+    pairs, starts = workloads.sample_reads(rng_g, genome, num, qlen, prefix)
     want = bench._sample_reads(rng_w, genome, num, qlen, prefix)
     assert pairs == [(r.seq_id, r.sequence) for r in want]
     assert rng_g.random() == rng_w.random()        # same draws consumed
@@ -107,16 +118,42 @@ def test_smoke_workload_matches_bench(config):
         assert sum(a != b for a, b in zip(seq[:100], genome[st:])) < 15
 
 
+def test_scan_rate_workload_matches_reference(monkeypatch):
+    """workloads.make_workload gives tools/prof_scan_rate.py's genome and
+    reads (the same draws in the same order), here on a shorter
+    genome."""
+    import importlib.util
+
+    from gblastn_tpu_torch.tools import workloads
+
+    spec = importlib.util.spec_from_file_location(
+        "_ref_prof_scan_rate", REPO / "tools" / "prof_scan_rate.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert ref.GENOME == workloads.GENOME_LEN
+    monkeypatch.setattr(ref, "GENOME", 40_000)
+    want_db, want = ref.make_workload(seed=3, num_queries=6, qlen=700)
+    db, got = workloads.make_workload(seed=3, num_queries=6, qlen=700,
+                                      genome_len=40_000)
+    assert [(r.seq_id, r.sequence) for r in got] == [
+        (r.seq_id, r.sequence) for r in want]
+    assert np.array_equal(db.packed, want_db.packed)
+    assert list(db.lengths) == list(want_db.lengths)
+
+
 def test_sources_never_import_jax():
     files = list((REPO / "gblastn_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 50
+    # the profilers are scanned too
+    assert REPO / "gblastn_tpu_torch" / "tools" / "prof_scan_parts.py" in files
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(), 1):
             assert not _FORBIDDEN.search(line), f"{f}:{n}: {line.strip()}"
     for bad in ("import jax", "from gblastn_tpu.io import fasta",
                 "x = gblastn_tpu.hits", "import gblastn_tpu",
-                "    import bench", "from bench import _sample_reads"):
+                "    import bench", "from bench import _sample_reads",
+                "import chip_smoke", "from chip_smoke import SEED"):
         assert _FORBIDDEN.search(bad), bad
     for ok in ("import gblastn_tpu_torch", "from gblastn_tpu_torch.io "
                "import fasta", "see gblastn_tpu/ops/pallas_gapped.py"):

@@ -1,0 +1,150 @@
+"""The port's profilers (gblastn_tpu_torch.tools) on the CPU: the
+two-depth arithmetic of loop_timer on a stage of known cost, each tool's
+main() run in-process at a small size, and no tool falling back to the
+CPU when a card is asked for and missing."""
+from __future__ import annotations
+
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+from gblastn_tpu_torch.tools import (
+    prof_e2e,
+    prof_gapped,
+    prof_scan_parts,
+    prof_scan_rate,
+    timing,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+
+# the plain versions run many small ops: on the CPU one thread beats a pool
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("cost_ms", [2.0, 5.0])
+def test_loop_timer_gives_the_cost_of_one_iteration(cost_ms, monkeypatch,
+                                                    capsys):
+    """On a clock that each iteration advances by cost_ms and each clock
+    read by 3.5 ms (a fixed cost in every timed run), T(K2) - T(K1) over
+    K2 - K1 is cost_ms exactly: what a run pays once cancels."""
+    clock = {"now": 100.0}
+
+    def perf_counter():
+        t = clock["now"]
+        clock["now"] += 3.5e-3
+        return t
+
+    monkeypatch.setattr(timing, "time",
+                        types.SimpleNamespace(perf_counter=perf_counter))
+    calls = []
+
+    def stage(x):
+        calls.append(x.clone())
+        clock["now"] += cost_ms / 1e3
+        return x.sum()
+
+    base = torch.zeros(64, dtype=torch.int8)
+    ms = timing.loop_timer(stage, "known-cost stage", 1e6, "Gunit/s",
+                           device=torch.device("cpu"), base=base)
+    assert ms == pytest.approx(cost_ms, rel=1e-9)
+    k1, k2 = timing.K1, timing.K2
+    assert len(calls) == (1 + timing.ROUNDS) * (k1 + k2)
+    # iteration k of a run sees (base + k) & 3
+    assert [int(c[0]) for c in calls[:k1]] == [k & 3 for k in range(k1)]
+    assert [int(c[0]) for c in calls[k1: k1 + k2]] == [
+        k & 3 for k in range(k2)]
+    line = capsys.readouterr().out.strip()
+    assert line.startswith("known-cost stage") and "ms/iter" in line
+    assert line.endswith(f"{1e6 / (cost_ms / 1e3) / 1e9:8.2f} Gunit/s")
+    assert f"{ms:8.3f} ms/iter" in line
+
+
+TOOLS = {
+    "prof_scan_parts": (prof_scan_parts.main, [], [
+        "1a gather", "1b gather", "1c gather", "2  PV build",
+        "3a words strided", "3b words packed", "3c words all-pos",
+        "4  torch.nonzero",
+        "5a table_gather global (8, 128) [P1]: OK correct=True",
+        "5b table_gather global (8, 128) vs torch.take [P2]: OK "
+        "correct=True",
+        "5s table_gather staged 4 KiB (8, 128): OK correct=True",
+        "5s table_gather staged 2 MiB: refused (ValueError",
+        "5c table_gather global 4096 [P3]: OK correct=True",
+        "5c table_gather staged 4096: OK correct=True",
+        "5c gather 4096 global 8 KiB", "5c tab[idx] 4096 8 KiB",
+        "5c gather 4096 staged 4 KiB", "5c tab[idx] 4096 4 KiB",
+        "5c gather 65536 global 8 KiB",
+        "# table_gather bit-equal in every check: True"]),
+    "prof_scan_rate": (prof_scan_rate.main, [], [
+        "A words-only", "B +PV probe", "C +compact", "D1 scan_block",
+        "D2 +seed compact: not ported", "D3 +mini_extend_packed",
+        "D seeding_scan_mini", "E full w/ packed mini: not ported",
+        "# scan+mini device rate:"]),
+    "prof_gapped": (prof_gapped.main, [], [
+        "alive: K2 64 jobs, rows 16", "dead: K2 64 jobs, rows 16",
+        "ms per launch", "Gcells/s"]),
+    "prof_gapped --parity": (prof_gapped.main, ["--parity"], [
+        "parity: 256/256 jobs exact"]),
+    "prof_e2e config1": (prof_e2e.main, ["config1"], [
+        "# warm-up", "# run 0:", "# run 1:", "q/s",
+        "== gblastn_tpu stage report ==", "device.seeding.pipeline"]),
+}
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_tool_runs_on_the_cpu_at_a_small_size(tool, capsys):
+    main, extra, labels = TOOLS[tool]
+    assert main(extra + ["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu (plain PyTorch; no device "
+                          "measurement)")
+    for label in labels:
+        assert label in out, label
+
+
+@pytest.mark.parametrize("tool", ["prof_scan_parts", "prof_scan_rate",
+                                  "prof_gapped", "prof_e2e config1"])
+def test_tool_without_a_card_raises(tool):
+    """The default device is cuda; without a card each tool raises
+    before it measures anything: there is no CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    main, extra, _ = TOOLS[tool]
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(extra)
+
+
+def test_scan_parts_records_give_the_kernels_entry(capsys):
+    """prof_scan_parts.profile() returns a record for each shape and mode
+    of the table gather, and chip_smoke.py builds its kernels line's
+    table_gather entry from them, with every key the line needs."""
+    import chip_smoke
+
+    out = prof_scan_parts.profile(["--device", "cpu", "--small"])
+    assert out["ok"]
+    recs = out["gather"]
+    assert sorted(recs) == sorted(f"{s}_{m}" for s in ("p1", "p3", "huge")
+                                  for m in ("global", "staged"))
+    sz = prof_scan_parts.SMALL
+    assert [recs[f"{s}_global"]["n"] for s in ("p1", "p3", "huge")] == [
+        1024, sz.gn, sz.huge]
+    assert recs["p3_staged"]["table_entries"] == sz.staged
+    for r in recs.values():
+        assert r["ok"] and r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
+        assert r["ms"] > 0 and r["plain_ms"] > 0 and r["library_ms"] > 0
+        assert r["ms_graph"] is None            # no CUDA graph on the cpu
+    entry = chip_smoke.gather_entry(recs, 7)
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in entry, key
+    assert (entry["name"], entry["route"]) == ("table_gather", "cuda")
+    assert (REPO / entry["source"]).is_file()
+    assert entry["launches"] == 7
+    assert entry["launches_by_path"] == {"prof_scan_parts": 7}
+    assert entry["ms"] == recs["p3_global"]["ms"]
+    assert entry["bound_ms_p1_global"] == recs["p1_global"]["bound_ms"]
+    assert entry["ms_16mi_staged"] == recs["huge_staged"]["ms"]
