@@ -20,8 +20,11 @@ counter set to 0 just before it and read just after:
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
-   16 Mi probes) in both of its modes, checks the staged mode's refusal
-   of a 2 MiB table and times each; and K2's parity check of
+   16 Mi probes) in both of its modes, the staged mode both on a 128 KiB
+   table and on P1-P3's own 2 MiB table (split across a cluster of 16
+   blocks), prints the card's limit on such clusters, sweeps the staged
+   grid's cluster count, checks the staged mode's refusal of a table
+   above its capacity and times each; and K2's parity check of
    tools.prof_gapped.
 
 Any failure raises (exit code != 0). The last three lines of standard
@@ -170,10 +173,12 @@ def compare_k2(args, kw, label, card, reps):
     return err, ms, plain_ms, bound_ms, by
 
 
-def gather_entry(recs, launches):
+def gather_entry(recs, launches, sweep=None):
     """The kernels line's table_gather entry from prof_scan_parts' records:
     times and bound at P3's shape in the global mode, the other shapes
-    and the staged mode beside them."""
+    and the staged mode (on the 128 KiB table and on the 2 MiB PV, keys
+    ``*_staged`` and ``*_staged_pv``) beside them, and the staged grid's
+    cluster sweep (one launch alone, ms by cluster count)."""
     p3 = recs["p3_global"]
     entry = {"name": "table_gather", "route": "cuda",
              "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
@@ -192,6 +197,12 @@ def gather_entry(recs, launches):
                           f"ms_graph_{tag}": r["ms_graph"],
                           f"library_ms_graph_{tag}": r["library_ms_graph"],
                           f"bound_ms_{tag}": r["bound_ms"]})
+    if sweep:
+        entry["sweep_ms_graph"] = {
+            key.replace("huge", "16mi"): {
+                "rule": w["rule"], "max": w["max"],
+                "ms": {str(c): ms for c, ms in w["ms"].items()}}
+            for key, w in sweep.items()}
     return entry
 
 
@@ -451,16 +462,19 @@ def main() -> int:
 
     # 4b. the path of P1-P3: the scan profiler in full, which holds the
     # table gather bit-equal to its plain version and tab[idx] at P1-P3's
-    # shapes (and 16 Mi probes) in both modes, checks the staged mode's
-    # refusal of the 2 MiB table and times each; then K2's parity check
-    # of prof_gapped (its plain version runs there by design)
+    # shapes (and 16 Mi probes) in both modes, the staged one on 128 KiB
+    # and on the 2 MiB PV, sweeps the staged cluster count, checks the
+    # staged mode's refusal above its capacity and times each; then K2's
+    # parity check of prof_gapped (its plain version runs there by
+    # design)
     guard(True)
     counts_zero()
     t0 = time.time()
     psp = prof_scan_parts.profile(["--device", "cuda"])
     psp_launches = (k1.launches, k2.launches, k3.launches)
     check(psp["ok"], "prof_scan_parts found a table_gather result not "
-                     "bit-equal, or the staged mode took the 2 MiB table")
+                     "bit-equal, or the staged mode took a table above its "
+                     "capacity")
     guard(False)
     check(psp_launches[2] > 0,
           "table_gather was not launched on the prof_scan_parts path")
@@ -721,7 +735,7 @@ def main() -> int:
          "bound_ms": k2_c2[3], "bound_by": k2_c2[4], "library_ms": None,
          "launches_by_path": {**{p: c[1] for p, c in paths.items()},
                               "prof_gapped_parity": pg_launches[1]}},
-        gather_entry(psp["gather"], psp_launches[2]),
+        gather_entry(psp["gather"], psp_launches[2], psp["sweep"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,11 +119,15 @@ def load():
         )
         fn = lib.gblastn_table_gather            # P1-P3
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int,       # tab, n_tab
-            ctypes.c_void_p, ctypes.c_int,       # idx, n
-            ctypes.c_void_p, ctypes.c_int,       # out, staged
-            ctypes.c_void_p,                     # stream
-        ]
+        fn.argtypes = (
+            [ctypes.c_int]                       # device
+            + [ctypes.c_void_p, ctypes.c_int] * 2    # tab, n_tab, idx, n
+            + [ctypes.c_void_p]                  # out
+            + [ctypes.c_int] * 5     # staged, cluster, clusters, slice, shift
+            + [ctypes.c_void_p]                  # stream
+        )
+        fn = lib.gblastn_table_gather_clusters   # its occupancy query
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib

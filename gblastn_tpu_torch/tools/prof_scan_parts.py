@@ -14,11 +14,16 @@ Every part runs in the two-depth loop of ``tools.timing.loop_timer``:
      packed-word variants (on int64 words: torch.uint32 lacks shifts);
   4. compaction with ``torch.nonzero``, the port's;
   5. P1-P3 through ``ops/gather.py``: the (8, 128), 262,144 and
-     16,777,216 probes into the 2 MiB table (global mode) and into its
-     first 128 KiB (staged mode), each checked bit-equal to ``tab[idx]``
-     and timed beside its plain version and ``tab[idx]`` (calls, and one
-     launch alone); the staged mode's refusal at 2 MiB; the larger two
-     also as loop stages.
+     16,777,216 probes into the 2 MiB table in the global mode, and in
+     the staged mode both into the PV of LUT width 10 (the table's
+     first 128 KiB, one block's shared memory) and into the 2 MiB table
+     itself (split across a cluster of 16 blocks); each checked
+     bit-equal to ``tab[idx]`` and timed beside its plain version and
+     ``tab[idx]`` (calls, and one launch alone); the staged geometry and
+     the card's limit on clusters; a sweep of the staged grid's cluster
+     count at 262,144 and 16 Mi probes; the staged mode's refusal of a
+     table above ``MAX_STAGED_ENTRIES``; the larger two shapes also as
+     loop stages.
 
 Run on the card:  python -m gblastn_tpu_torch.tools.prof_scan_parts
 On the CPU:       ... --device cpu --small   (a small size; CPU times)
@@ -37,6 +42,10 @@ import torch
 from gblastn_tpu_torch.device import resolve_device
 from gblastn_tpu_torch.ops.gather import (
     MAX_STAGED_ENTRIES,
+    max_active_clusters,
+    slice_layout,
+    slice_smem_bytes,
+    staged_geometry,
     table_gather,
     table_gather_ref,
 )
@@ -54,7 +63,7 @@ class Sizes(NamedTuple):
     lut_w: int          # LUT width: the table has 4^lut_w entries
     gn: int             # P3's probe count
     huge: int           # the large probe count of part 5d
-    staged: int         # the staged table's entries (<= MAX_STAGED_ENTRIES)
+    staged: int         # the narrow staged table's entries (a power of 2)
 
     @property
     def n_scan(self) -> int:
@@ -154,21 +163,70 @@ def _time_gathers(n, tab, idx, tab_s, timer) -> None:
     def stage(t, mask, gather):
         return lambda x: gather(t, (idx + x[0].int()) & mask).sum()
 
+    def staged(t, i):
+        return table_gather(t, i, staged=True)
+
     timer(stage(tab, npv - 1, table_gather),
           f"5c gather {n} global {kib}", n)
+    timer(stage(tab, npv - 1, staged), f"5c gather {n} staged {kib}", n)
     timer(stage(tab, npv - 1, lambda t, i: t[i]),
           f"5c tab[idx] {n} {kib}", n)
-    timer(stage(tab_s, ns - 1,
-                lambda t, i: table_gather(t, i, staged=True)),
-          f"5c gather {n} staged {kib_s}", n)
+    timer(stage(tab_s, ns - 1, staged), f"5c gather {n} staged {kib_s}", n)
     timer(stage(tab_s, ns - 1, lambda t, i: t[i]),
           f"5c tab[idx] {n} {kib_s}", n)
 
 
+def _limit(dev):
+    """The card's limit on staged clusters, for staged_geometry."""
+    return lambda c, smem: max_active_clusters(dev.index, c, smem)
+
+
+def _geometry_line(tab, dev) -> int:
+    """Prints the staged layout of ``tab`` and, on the card, how many
+    such clusters it holds at once; returns that count (None on the
+    cpu)."""
+    c, sl, _ = slice_layout(tab.numel())
+    smem = slice_smem_bytes(sl)
+    head = (f"5g staged geometry {_size(4 * tab.numel())}: clusters of {c} "
+            f"blocks x {sl} entries ({smem} bytes of shared memory a block)")
+    if dev.type != "cuda":
+        print(f"{head}; the card's limit not queried on the cpu")
+        return None
+    m = _limit(dev)(c, smem)
+    print(f"{head}; cudaOccupancyMaxActiveClusters: {m} at once")
+    return m
+
+
+def _sweep(label, tab, idx, dev) -> dict:
+    """Part 5d: one staged launch alone (a CUDA graph) at cluster counts
+    1, 2, 4, ... up to the card's limit, and the geometry's own pick,
+    each checked bit-equal; {clusters: ms}."""
+    g = staged_geometry(tab.numel(), idx.numel(), _limit(dev))
+    top = _limit(dev)(g.cluster, g.smem_bytes)
+    counts = sorted({1 << k for k in range(8) if 1 << k <= top}
+                    | {top, g.clusters})
+    want = tab[idx]
+    ms = {}
+    ok = True
+    for cl in counts:
+        def fn(cl=cl):
+            return table_gather(tab, idx, staged=True, clusters=cl)
+        ok &= torch.equal(fn(), want)
+        ms[cl] = graph_ms(fn, counted=(table_gather,))
+    print(f"5d staged sweep {label}, clusters of {g.cluster}: " + ", ".join(
+        f"{cl}{' (max)' if cl == top else ''}"
+        f"{' (rule)' if cl == g.clusters else ''} {t:.5f}"
+        for cl, t in ms.items()) + f" ms one launch; bit-equal {ok}")
+    return {"ok": ok, "ms": ms, "rule": g.clusters, "max": top}
+
+
 def profile(argv=None) -> dict:
     """Runs every part and returns ``{"ok": every gather check held,
-    "gather": {"p1_global": record, "p1_staged": ..., "p3_*", "huge_*"}}``
-    with the records of ``_gather_record``."""
+    "gather": {"p1_global": record, "p1_staged": ..., "p1_staged_pv": ...,
+    "p3_*", "huge_*"}, "sweep": {"p3_staged": {"ms": {clusters: ms},
+    "rule": n, "max": n, "ok": bool}, ...}}`` with the records of
+    ``_gather_record`` (``*_staged_pv`` only where the card places the
+    cluster the PV needs; the sweep only on the card)."""
     ap = argparse.ArgumentParser(
         prog="python -m gblastn_tpu_torch.tools.prof_scan_parts",
         description=__doc__.splitlines()[0])
@@ -270,47 +328,73 @@ def profile(argv=None) -> dict:
         return hit.sum() + hit.numel()
     timer(comp, f"4  torch.nonzero {n_scan} (x&15==0)", n_scan)
 
-    # 5. P1-P3: the table gather, each shape in both modes
+    # 5. P1-P3: the table gather, each shape in both modes; the staged
+    # mode on the narrow PV (one block's shared memory) and on the PV
+    # itself (a cluster's)
     tab = t(d["tab"])
     ns = sz.staged
     tab_s = tab[:ns]
     ok = True
-    gather = {}
-    for key, name, lab_g, lab_s in (
-            ("gidx", "p1", "5a table_gather global (8, 128) [P1]",
-             f"5s table_gather staged {_size(4 * ns)} (8, 128)"),
-            ("bigidx", "p3", f"5c table_gather global {sz.gn} [P3]",
-             f"5c table_gather staged {sz.gn}"),
-            ("hugeidx", "huge", f"5c table_gather global {sz.huge}",
-             f"5c table_gather staged {sz.huge}")):
+    gather, sweep = {}, {}
+    fits = {}
+    for tb in (tab_s, tab):
+        fits[tb.numel()] = _geometry_line(tb, dev) != 0
+    for key, name, lab in (
+            ("gidx", "p1", "(8, 128)"), ("bigidx", "p3", str(sz.gn)),
+            ("hugeidx", "huge", str(sz.huge))):
         probes = t(d[key])
+        want = d["tab"][d[key]]
+        p1 = " [P1]" if key == "gidx" else " [P3]" if key == "bigidx" else ""
         gather[f"{name}_global"] = _gather_record(
-            lab_g, tab, probes, False, d["tab"][d[key]], dev)
+            f"5{'a' if key == 'gidx' else 'c'} table_gather global "
+            f"{lab}{p1}", tab, probes, False, want, dev)
         gather[f"{name}_staged"] = _gather_record(
-            lab_s, tab_s, probes & (ns - 1), True,
-            d["tab"][:ns][d[key] & (ns - 1)], dev)
+            f"5s table_gather staged {_size(4 * ns)} {lab}", tab_s,
+            probes & (ns - 1), True, d["tab"][:ns][d[key] & (ns - 1)], dev)
+        label = f"5s table_gather staged {_size(4 * npv)} {lab}{p1}"
+        if fits[npv]:
+            gather[f"{name}_staged_pv"] = _gather_record(
+                label, tab, probes, True, want, dev)
+        else:       # the card places no cluster of the size it needs
+            try:
+                table_gather(tab, probes, staged=True)
+            except RuntimeError as e:
+                print(f"{label}: refused (RuntimeError: {e})")
+            else:
+                print(f"{label}: NOT refused")
+                ok = False
         if key != "gidx":
             _time_gathers(probes.numel(), tab, probes, tab_s, timer)
+            if dev.type == "cuda":
+                for tb, pr, tag in ((tab_s, probes & (ns - 1), "staged"),
+                                    (tab, probes, "staged_pv")):
+                    if fits[tb.numel()]:
+                        sweep[f"{name}_{tag}"] = _sweep(
+                            f"{_size(4 * tb.numel())} {lab}", tb, pr, dev)
+            else:
+                print(f"5d staged sweep {lab}: not measured on the cpu")
             continue
         out = table_gather(tab, probes)
         ok2 = torch.equal(out, torch.take(tab, probes.long()))
         print(f"5b table_gather global (8, 128) vs torch.take [P2]: OK "
               f"correct={ok2}")
         ok &= ok2
-        big_tab = tab if npv > MAX_STAGED_ENTRIES else torch.zeros(
-            FULL.table // 32, dtype=torch.int32, device=dev)
+        over = torch.zeros(MAX_STAGED_ENTRIES + 1, dtype=torch.int32,
+                           device=dev)
         try:
-            table_gather(big_tab, probes, staged=True)
+            table_gather(over, probes, staged=True)
         except ValueError as e:
-            print(f"5s table_gather staged {_size(4 * big_tab.numel())}: "
-                  f"refused (ValueError: {e})")
+            print(f"5s table_gather staged {over.numel()} entries: refused "
+                  f"(ValueError: {e})")
         else:
-            print(f"5s table_gather staged {_size(4 * big_tab.numel())}: "
-                  "NOT refused")
+            print(f"5s table_gather staged {over.numel()} entries: NOT "
+                  "refused")
             ok = False
+        del over
     ok &= all(r["ok"] for r in gather.values())
+    ok &= all(r["ok"] for r in sweep.values())
     print(f"# table_gather bit-equal in every check: {ok}")
-    return {"ok": ok, "gather": gather}
+    return {"ok": ok, "gather": gather, "sweep": sweep}
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
-"""K1 and K2 on the card against their plain versions, on the same CUDA
-tensors.
+"""K1, K2 and the table gather on the card against their plain versions,
+on the same CUDA tensors.
 
 Needs a CUDA card (skips elsewhere). Imports no JAX, so it also runs on a
 machine without it:
@@ -126,32 +126,73 @@ def test_gapped_kernel_bit_equal_to_plain_version():
 
 @pytest.mark.cuda
 def test_table_gather_bit_equal_to_plain_version():
-    """P1-P3: both modes against the plain version at P1's and P3's
-    shapes; the staged mode at a 128 KiB table (above the 48 KiB that
-    needs the shared-memory opt-in) and its refusal at 2 MiB."""
+    """P1-P3: both modes against the plain version, numpy's tab[idx] and
+    torch.take at P1's and P3's shapes and 16 Mi probes; the staged mode
+    on a 128 KiB table (one block, above the 48 KiB that needs the
+    shared-memory opt-in) and on P1-P3's own 2 MiB table (a cluster of
+    16 blocks); ragged probe counts (the scalar tail); index and table
+    views at an odd element offset (the scalar path, the unaligned head
+    and tail of each slice); the refusal above the staged capacity."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from gblastn_tpu_torch.ops.gather import table_gather, table_gather_ref
+    from gblastn_tpu_torch.ops.gather import (
+        MAX_STAGED_ENTRIES,
+        max_active_clusters,
+        slice_layout,
+        slice_smem_bytes,
+        table_gather,
+        table_gather_ref,
+    )
 
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(1)
-    tab = torch.from_numpy(rng.integers(0, 100, 4 ** 12 // 32,
+    buf = torch.from_numpy(rng.integers(0, 1 << 30, 4 ** 12 // 32 + 8,
                                         np.int32)).to(dev)
-    tab_s = tab[:32768]
-    for shape in ((8, 128), (2048, 128), (1_000_003,)):
+    tab = buf[:4 ** 12 // 32]
+    c, sl, _ = slice_layout(tab.numel())
+    assert (c, sl) == (16, 32768)
+    pv_fits = max_active_clusters(0, c, slice_smem_bytes(sl)) > 0
+
+    def check(t, i, staged):
+        if staged and t.numel() > 32768 and not pv_fits:
+            with pytest.raises(RuntimeError, match="no cluster of 16"):
+                table_gather(t, i, staged=True)
+            return
+        before = table_gather.launches
+        got = table_gather(t, i, staged=staged)
+        want = table_gather_ref(t, i)
+        torch.cuda.synchronize()
+        assert table_gather.launches == before + 1
+        assert got.is_cuda and got.shape == i.shape
+        assert torch.equal(got, want)
+        assert torch.equal(got.reshape(-1), torch.take(t, i.long()).reshape(-1))
+        assert np.array_equal(got.cpu().numpy(),
+                              t.cpu().numpy()[i.cpu().numpy()])
+
+    def modes(t, i):
+        return ((t, i, False), (t[:32768], i & 32767, True), (t, i, True))
+
+    for shape in ((8, 128), (2048, 128), (16 * 2**20,)):
         idx = torch.from_numpy(rng.integers(0, tab.numel(), shape,
                                             np.int32)).to(dev)
-        for t, i, staged in ((tab, idx, False),
-                             (tab_s, idx & 32767, True)):
-            before = table_gather.launches
-            got = table_gather(t, i, staged=staged)
-            want = table_gather_ref(t, i)
-            torch.cuda.synchronize()
-            assert table_gather.launches == before + 1
-            assert got.is_cuda and got.shape == i.shape
-            assert torch.equal(got, want)
-    with pytest.raises(ValueError):
-        table_gather(tab, idx, staged=True)
+        for args in modes(tab, idx):
+            check(*args)
+    for n in (1, 3, 1023, 262_145):
+        ibuf = torch.from_numpy(rng.integers(0, tab.numel(), n + 1,
+                                             np.int32)).to(dev)
+        for i in (ibuf[:n], ibuf[1:]):          # aligned; odd offset
+            for args in modes(tab, i):
+                check(*args)
+            for args in modes(buf[1:1 + tab.numel()], i):   # odd table
+                check(*args)
+    over = torch.zeros(MAX_STAGED_ENTRIES + 1, dtype=torch.int32,
+                       device=dev)
+    before = table_gather.launches
+    with pytest.raises(ValueError, match="at most"):
+        table_gather(over, idx, staged=True)
+    assert table_gather.launches == before
+    assert torch.equal(table_gather(over, idx[:1000]),
+                       torch.zeros(1000, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.cuda

@@ -16,6 +16,11 @@ import torch
 
 from gblastn_tpu_torch.ops.gather import (
     MAX_STAGED_ENTRIES,
+    SLICE_MAX_ENTRIES,
+    Geometry,
+    slice_layout,
+    slice_smem_bytes,
+    staged_geometry,
     table_gather,
     table_gather_ref,
 )
@@ -58,11 +63,11 @@ def test_port_tool_keeps_the_reference_draws(draws):
         assert np.array_equal(d[key], draws[key]), key
 
 
-@pytest.mark.parametrize("staged", [False, True], ids=["global", "staged"])
+@pytest.mark.parametrize("mode", ["global", "staged", "staged_pv"])
 @pytest.mark.parametrize("key", ["gidx", "bigidx"], ids=["P1", "P3"])
-def test_gather_matches_reference_check(draws, key, staged):
+def test_gather_matches_reference_check(draws, key, mode):
     tab, idx = draws["tab"], draws[key]
-    if staged:      # the staged mode holds the PV of LUT width 10
+    if mode == "staged":    # the narrow staged table: the PV of width 10
         tab, idx = tab[: FULL.staged], idx & (FULL.staged - 1)
     want = tab[idx]
     assert np.array_equal(np.asarray(jnp.take(jnp.asarray(tab),
@@ -70,7 +75,7 @@ def test_gather_matches_reference_check(draws, key, staged):
     t_tab, t_idx = torch.from_numpy(tab), torch.from_numpy(idx)
     ref = table_gather_ref(t_tab, t_idx)
     before = table_gather.launches
-    got = table_gather(t_tab, t_idx, staged=staged)
+    got = table_gather(t_tab, t_idx, staged=mode != "global")
     assert table_gather.launches == before       # the CPU runs no kernel
     for out in (ref, got):
         assert out.dtype == torch.int32 and out.shape == idx.shape
@@ -78,17 +83,77 @@ def test_gather_matches_reference_check(draws, key, staged):
 
 
 def test_staged_refuses_a_table_above_shared_memory():
-    assert MAX_STAGED_ENTRIES == 58_112          # 227 KiB of int32
+    """The staged mode holds up to 16 slices of 227 KiB (less 32 bytes a
+    slice for the barrier and the alignment pad): P1-P3's own
+    int32[524,288] table is taken, a table one entry or one slice past
+    the capacity raises ValueError before any dispatch."""
+    assert SLICE_MAX_ENTRIES == (232_448 - 32) // 4 == 58_104
+    assert MAX_STAGED_ENTRIES == 16 * SLICE_MAX_ENTRIES == 929_664
     idx = torch.zeros(8, dtype=torch.int32)
+    pv = torch.arange(TABLE // 32, dtype=torch.int32)
+    assert torch.equal(table_gather(pv, idx + 524_287, staged=True),
+                       idx + 524_287)
     fits = torch.arange(MAX_STAGED_ENTRIES, dtype=torch.int32)
     assert torch.equal(table_gather(fits, idx + 7, staged=True), idx + 7)
-    for n in (MAX_STAGED_ENTRIES + 1, TABLE // 32):
-        with pytest.raises(ValueError, match="at most 58112"):
+    for n in (MAX_STAGED_ENTRIES + 1, 16 * 232_448 // 4 + SLICE_MAX_ENTRIES):
+        with pytest.raises(ValueError, match="at most 929664"):
             table_gather(torch.zeros(n, dtype=torch.int32), idx,
                          staged=True)
     # the global mode takes it
-    big = torch.arange(TABLE // 32, dtype=torch.int32)
+    big = torch.arange(MAX_STAGED_ENTRIES + 1, dtype=torch.int32)
     assert torch.equal(table_gather(big, idx + 5), idx + 5)
+
+
+# cudaOccupancyMaxActiveClusters on an H100 SXM (132 SMs) for 1,024-thread
+# blocks with 128 KiB or more of shared memory each: one block an SM
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+def h100_limit(cluster, smem_bytes):
+    assert smem_bytes == slice_smem_bytes((smem_bytes - 32) // 4)
+    assert smem_bytes <= 232_448
+    return H100_CLUSTERS[cluster]
+
+
+@pytest.mark.parametrize("n", [1, 1024, 262_144, 16 * 2**20],
+                         ids=["1", "1024", "262144", "16Mi"])
+@pytest.mark.parametrize("table,want", [
+    (32_768, ((1, 32_768, -1), (1, 1, 32, 132))),      # 128 KiB
+    (131_072, ((4, 32_768, 15), (1, 1, 30, 30))),      # 512 KiB
+    (524_288, ((16, 32_768, 15), (1, 1, 7, 7))),       # 2 MiB, P1-P3's
+    (929_664, ((16, 58_104, -1), (1, 1, 7, 7))),       # the capacity
+], ids=["128KiB", "512KiB", "2MiB", "capacity"])
+def test_staged_geometry(table, want, n):
+    """Cluster size: the smallest of 1, 2, 4, 8, 16 whose slice fits a
+    block; slices of a power of two entries where they fit (shift); the
+    grid: one cluster per 8,192 probes a block for a cluster of one
+    (local reads), per 1,024 for a larger one (distributed shared
+    memory), within [1, the card's limit]."""
+    (cluster, sl, shift), counts = want
+    g = staged_geometry(table, n, h100_limit)
+    k = [1, 1024, 262_144, 16 * 2**20].index(n)
+    assert g == Geometry(cluster, counts[k], sl, shift)
+    assert g.cluster * g.slice >= table
+    assert g.smem_bytes == 4 * sl + 32 <= 232_448
+    assert slice_layout(table) == (cluster, sl, shift)
+
+
+def test_staged_geometry_limits():
+    """Odd sizes keep slices a multiple of 4 entries; the card's limit
+    bounds a sweep's cluster count; a card that places no cluster of the
+    size a table needs raises RuntimeError naming that size."""
+    assert slice_layout(1) == (1, 4, -1)
+    assert slice_layout(58_105) == (2, 32_768, 15)
+    assert slice_layout(131_073) == (4, 32_772, -1)
+    assert slice_layout(600_001) == (16, 37_504, -1)
+    assert staged_geometry(524_288, 16, h100_limit, clusters=7).clusters == 7
+    for bad in (0, 8):
+        with pytest.raises(ValueError, match="1 to 7"):
+            staged_geometry(524_288, 16, h100_limit, clusters=bad)
+    with pytest.raises(RuntimeError, match="no cluster of 16 blocks"):
+        staged_geometry(524_288, 1024, lambda c, smem: 0 if c == 16 else 1)
+    with pytest.raises(ValueError, match="at most"):
+        slice_layout(MAX_STAGED_ENTRIES + 1)
 
 
 @pytest.mark.parametrize("bad", ["int64 table", "int64 index", "2-D table",

@@ -70,12 +70,19 @@ TOOLS = {
         "5a table_gather global (8, 128) [P1]: OK correct=True",
         "5b table_gather global (8, 128) vs torch.take [P2]: OK "
         "correct=True",
+        "5g staged geometry 4 KiB: clusters of 1 blocks x 1024 entries "
+        "(4128 bytes of shared memory a block)",
+        "5g staged geometry 8 KiB: clusters of 1 blocks x 2048 entries",
         "5s table_gather staged 4 KiB (8, 128): OK correct=True",
-        "5s table_gather staged 2 MiB: refused (ValueError",
+        "5s table_gather staged 8 KiB (8, 128) [P1]: OK correct=True",
+        "5s table_gather staged 929665 entries: refused (ValueError",
         "5c table_gather global 4096 [P3]: OK correct=True",
-        "5c table_gather staged 4096: OK correct=True",
-        "5c gather 4096 global 8 KiB", "5c tab[idx] 4096 8 KiB",
+        "5s table_gather staged 4 KiB 4096: OK correct=True",
+        "5s table_gather staged 8 KiB 4096 [P3]: OK correct=True",
+        "5c gather 4096 global 8 KiB", "5c gather 4096 staged 8 KiB",
+        "5c tab[idx] 4096 8 KiB",
         "5c gather 4096 staged 4 KiB", "5c tab[idx] 4096 4 KiB",
+        "5d staged sweep 4096: not measured on the cpu",
         "5c gather 65536 global 8 KiB",
         "# table_gather bit-equal in every check: True"]),
     "prof_scan_rate": (prof_scan_rate.main, [], [
@@ -127,11 +134,13 @@ def test_scan_parts_records_give_the_kernels_entry(capsys):
     assert out["ok"]
     recs = out["gather"]
     assert sorted(recs) == sorted(f"{s}_{m}" for s in ("p1", "p3", "huge")
-                                  for m in ("global", "staged"))
+                                  for m in ("global", "staged", "staged_pv"))
+    assert out["sweep"] == {}                   # measured on the card only
     sz = prof_scan_parts.SMALL
     assert [recs[f"{s}_global"]["n"] for s in ("p1", "p3", "huge")] == [
         1024, sz.gn, sz.huge]
     assert recs["p3_staged"]["table_entries"] == sz.staged
+    assert recs["p3_staged_pv"]["table_entries"] == sz.table // 32
     for r in recs.values():
         assert r["ok"] and r["max_abs_err"] == 0 and r["bound_by"] == "bytes"
         assert r["ms"] > 0 and r["plain_ms"] > 0 and r["library_ms"] > 0
@@ -148,3 +157,10 @@ def test_scan_parts_records_give_the_kernels_entry(capsys):
     assert entry["ms"] == recs["p3_global"]["ms"]
     assert entry["bound_ms_p1_global"] == recs["p1_global"]["bound_ms"]
     assert entry["ms_16mi_staged"] == recs["huge_staged"]["ms"]
+    assert entry["bound_ms_p1_staged_pv"] == recs["p1_staged_pv"]["bound_ms"]
+    assert "sweep_ms_graph" not in entry
+    sweep = {"p3_staged_pv": {"ok": True, "ms": {1: 0.03, 7: 0.009},
+                              "rule": 7, "max": 7}}
+    assert chip_smoke.gather_entry(recs, 7, sweep)["sweep_ms_graph"] == {
+        "p3_staged_pv": {"rule": 7, "max": 7,
+                         "ms": {"1": 0.03, "7": 0.009}}}
