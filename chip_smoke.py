@@ -5,9 +5,12 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It
 builds the CUDA kernels from csrc/ (one nvcc per source, all started
-together), holds each against its plain PyTorch version on the card, and
-drives the port's paths end to end, each with every kernel's launch
-counter set to 0 just before it and read just after:
+together), holds each against its plain PyTorch version on the card
+(K2 also replayed from a CUDA graph that captured its wrapper, which
+fails if the wrapper waits on the card), times K1 and K2 as one launch
+alone in a CUDA graph beside their wrapper calls, and drives the port's
+paths end to end, each with every kernel's launch counter set to 0 just
+before it and read just after:
 
 1. megablast, config 1 of bench.py (500 x 1 kb reads against a 4.6 Mb
    genome), through the CLI: K1; tabular bytes equal to the plain-PyTorch
@@ -98,15 +101,18 @@ def bound(nbytes, ops):
 
 def compare_k1(args, label, card, reps):
     """K1 against its plain version on the same CUDA tensors: bit-equal
-    on all five outputs. Returns (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)."""
+    on all five outputs; a wrapper call timed back to back and one launch
+    alone through K1's C entry in a CUDA graph (its wrapper checks ranges
+    on the card, so it cannot be captured). Returns (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, ms_graph)."""
     import torch
 
     from gblastn_tpu_torch.ops.ungapped import (
         ungapped_extend_window,
         ungapped_extend_window_ref,
     )
-    from gblastn_tpu_torch.tools.timing import call_ms
+    from gblastn_tpu_torch.tools.prof_launch import k1_launch
+    from gblastn_tpu_torch.tools.timing import call_ms, graph_ms
 
     got = ungapped_extend_window(*args)
     *want, steps = ungapped_extend_window_ref(*args, return_steps=True)
@@ -118,6 +124,10 @@ def compare_k1(args, label, card, reps):
     check(err == 0, f"K1 differs from its plain version on {label} "
                     f"(max abs err {err})")
     ms = call_ms(lambda: ungapped_extend_window(*args), reps, "cuda")
+    launch, outs = k1_launch(args)
+    ms_graph = graph_ms(launch)
+    check(all(torch.equal(o, g) for o, g in zip(outs, got)),
+          f"K1's C entry, replayed in a CUDA graph, differs on {label}")
     plain_ms = call_ms(lambda: ungapped_extend_window_ref(*args), 3,
                        "cuda")
     n = args[3].numel()
@@ -125,15 +135,18 @@ def compare_k1(args, label, card, reps):
     # query, subject, table and 5 int32 per seed in; 5 int32 per seed out
     bound_ms, by = bound(nbytes(*args) + 20 * n, K1_OPS_PER_STEP * steps)
     print(f"k1 {label}: n={n} seeds, {steps} walk steps, bit-equal, "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({by})  [{card}]")
-    return err, ms, plain_ms, bound_ms, by
+          f"kernel {ms:.4f} ms a call, {ms_graph:.4f} ms one launch, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})  [{card}]")
+    return err, ms, plain_ms, bound_ms, by, ms_graph
 
 
 def compare_k2(args, kw, label, card, reps):
     """K2 against its plain version on the same CUDA tensors: bit-equal
-    on score and flags of every job. Returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by)."""
+    on score and flags of every job, also after replaying the wrapper's
+    call captured in a CUDA graph (the capture fails if the wrapper waits
+    on the card); a wrapper call timed back to back and one launch alone
+    from the graph. Returns (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, ms_graph)."""
     import torch
 
     from gblastn_tpu_torch.ops.gapped import (
@@ -142,7 +155,7 @@ def compare_k2(args, kw, label, card, reps):
         banded_gapped_scores,
         banded_gapped_scores_ref,
     )
-    from gblastn_tpu_torch.tools.timing import call_ms
+    from gblastn_tpu_torch.tools.timing import call_ms, graph_ms
 
     got = banded_gapped_scores(*args, **kw)
     ws, wf, cells = banded_gapped_scores_ref(*args, **kw,
@@ -153,6 +166,15 @@ def compare_k2(args, kw, label, card, reps):
     check(err == 0, f"K2 differs from its plain version on {label} "
                     f"(max abs err {err})")
     ms = call_ms(lambda: banded_gapped_scores(*args, **kw), reps, "cuda")
+    last = []
+
+    def launch():
+        last[:] = banded_gapped_scores(*args, **kw)
+
+    ms_graph = graph_ms(launch, counted=(banded_gapped_scores,))
+    torch.cuda.synchronize()
+    check(torch.equal(last[0], ws) and torch.equal(last[1], wf),
+          f"K2 replayed in a CUDA graph differs on {label}")
     plain_ms = call_ms(lambda: banded_gapped_scores_ref(*args, **kw), 2,
                        "cuda")
     jobs = args[3]
@@ -168,9 +190,10 @@ def compare_k2(args, kw, label, card, reps):
     empty = int(((jobs.m <= 0) | (jobs.n <= 0)).sum())
     print(f"k2 {label}: {J} jobs ({empty} empty), rows {kw['rows']}, "
           f"{cells} cells (j in [0, N]) computed, flagged edge {n_edge} / rows "
-          f"{n_rows}, bit-equal, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})  [{card}]")
-    return err, ms, plain_ms, bound_ms, by
+          f"{n_rows}, bit-equal (also from a graph), kernel {ms:.4f} ms a "
+          f"call, {ms_graph:.4f} ms one launch, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({by})  [{card}]")
+    return err, ms, plain_ms, bound_ms, by, ms_graph
 
 
 def gather_entry(recs, launches, sweep=None):
@@ -280,7 +303,7 @@ def random_k2_cases(device, n=4096, seed=SEED + 5):
 
     from gblastn_tpu_torch import blastn_options, megablast_options
     from gblastn_tpu_torch.engine.gapped import device_gapped_params
-    from gblastn_tpu_torch.ops.gapped import gapped_jobs
+    from gblastn_tpu_torch.ops.gapped import check_jobs, gapped_jobs
 
     rng = np.random.default_rng(seed)
     S, Q = 2_000_000, 1_000_000
@@ -308,12 +331,14 @@ def random_k2_cases(device, n=4096, seed=SEED + 5):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    h = torch.from_numpy
     for name, opts, gxd in (("blastn", blastn_options(), 33),
                             ("megablast", megablast_options(), 27)):
         mat, _dbl, go, ge, xd = device_gapped_params(opts, gxd)
         x = np.where(rng.random(n) < 0.1, 400, xd).astype(np.int32)
-        jobs = gapped_jobs(t(qs), t(ss), t(q_lo), t(q_hi), t(s_lo),
-                           t(s_hi), t(x))
+        jobs = check_jobs(gapped_jobs(h(qs), h(ss), h(q_lo), h(q_hi),
+                                      h(s_lo), h(s_hi), h(x)),
+                          Q, S, 512).to(device)
         yield (f"random {name} jobs", (t(q), t(sub), t(mat), jobs),
                dict(rows=512, gap_open=go, gap_extend=ge))
 
@@ -725,14 +750,16 @@ def main() -> int:
          "replaces": K1_REPLACES, "launches": c2_launches[0],
          "max_abs_err": max(k1_c1[0], k1_rand[0], k1_c2[0]),
          "ms": k1_c2[1], "plain_ms": k1_c2[2], "bound_ms": k1_c2[3],
-         "bound_by": k1_c2[4], "library_ms": None,
+         "bound_by": k1_c2[4], "library_ms": None, "ms_graph": k1_c2[5],
          "ms_config1": k1_c1[1], "plain_ms_config1": k1_c1[2],
-         "bound_ms_config1": k1_c1[3],
+         "bound_ms_config1": k1_c1[3], "ms_graph_config1": k1_c1[5],
          "launches_by_path": {p: c[0] for p, c in paths.items()}},
         {"name": "gapped_band", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": c2_launches[1],
          "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],
          "bound_ms": k2_c2[3], "bound_by": k2_c2[4], "library_ms": None,
+         "ms_graph": k2_c2[5],
+         "ms_graph_random": [r[5] for r in k2_rand],
          "launches_by_path": {**{p: c[1] for p, c in paths.items()},
                               "prof_gapped_parity": pg_launches[1]}},
         gather_entry(psp["gather"], psp_launches[2], psp["sweep"]),

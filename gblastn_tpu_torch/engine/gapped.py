@@ -34,6 +34,7 @@ from gblastn_tpu_torch.io.query import QueryBlock
 from gblastn_tpu_torch.ops.gapped import (
     NEG,
     banded_gapped_scores,
+    check_jobs,
     fold_directions,
     gapped_jobs,
 )
@@ -157,13 +158,15 @@ def gapped_filter_jobs(
         q_seed[over] -= 4
         s_seed[over] -= 4
 
-    dev = dgd.query.device
-    seeds = (
-        torch.from_numpy(np.stack([q_seed, s_seed, q_lo, q_hi, s_lo, s_hi]))
-        .to(dev)
-    )
-    return gapped_jobs(*seeds, torch.full((n,), dgd.x_drop,
-                                          dtype=torch.int32, device=dev))
+    # built and range-checked on the host, then moved in one copy: the
+    # kernel's launch reads nothing back from the card
+    seeds = torch.from_numpy(np.stack([q_seed, s_seed, q_lo, q_hi, s_lo,
+                                       s_hi]))
+    jobs = gapped_jobs(*seeds, torch.full((n,), dgd.x_drop,
+                                          dtype=torch.int32))
+    jobs = check_jobs(jobs, dgd.query.numel(), dgd.subject2.numel(),
+                      dgd.rows)
+    return jobs.to(dgd.query.device)
 
 
 def device_gapped_rejects(

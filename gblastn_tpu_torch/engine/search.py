@@ -13,6 +13,7 @@ NotImplementedError naming the ROADMAP item that ports it.
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -83,6 +84,17 @@ class PrelimResult:
     masks: list[list[tuple[int, int]]] | None = None
 
 
+def _shards_requested() -> int:
+    """GBLASTN_TPU_SHARDS as the reference reads it: a value that is not
+    a number, the empty one included, is ignored with a note on stderr."""
+    try:
+        return int(os.environ.get("GBLASTN_TPU_SHARDS", "0"))
+    except ValueError:
+        print("gblastn_tpu: ignoring non-numeric GBLASTN_TPU_SHARDS",
+              file=sys.stderr)
+        return 0
+
+
 def _refuse_outside_slice(records, options: SearchOptions) -> None:
     """NotImplementedError for every search shape this slice does not
     port, naming the ROADMAP Queue 1 item that does."""
@@ -108,7 +120,7 @@ def _refuse_outside_slice(records, options: SearchOptions) -> None:
     chunk = chunk_size_for_task(options.task.value)
     if any(rec.length > chunk for rec in records):
         no(f"query splitting (a query longer than {chunk} bases)", 10)
-    if int(os.environ.get("GBLASTN_TPU_SHARDS", "0") or 0) > 1:
+    if _shards_requested() > 1:
         no("multi-device sharding (GBLASTN_TPU_SHARDS > 1)", 14)
     # the resident size bound is checked where the database is uploaded
     # (engine.resident)

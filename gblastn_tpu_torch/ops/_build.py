@@ -112,7 +112,8 @@ def load():
         fn = lib.gblastn_gapped_band             # K2
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 8        # query, subject, matrix, a0 .. x
+            [ctypes.c_void_p] * 9        # query, subject, matrix, a0 .. x,
+                                         # order
             + [ctypes.c_int] * 5         # n_jobs, n_right, rows, open, ext
             + [ctypes.c_void_p] * 2      # score, flags
             + [ctypes.c_void_p]          # stream
@@ -131,3 +132,24 @@ def load():
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         _lib = lib
     return _lib
+
+
+def build_one(source: Path, name: str) -> ctypes.CDLL:
+    """One ``.cu`` source alone, compiled into
+    ``build/gblastn_tpu_torch/compare/<name>.so`` and loaded (unbound).
+    For the profilers' comparisons only (another commit's kernel); the
+    port's paths load ``load()``'s library."""
+    source = Path(source)
+    out = BUILD_DIR / "compare" / f"{name}.so"
+    if not out.exists() or out.stat().st_mtime < source.stat().st_mtime:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               str(source)]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

@@ -1,0 +1,228 @@
+"""K2 and K1 one launch alone, at the search path's shapes.
+
+Builds config 2's workload on the card (bench.py's genome and seed, 200 x
+1.5 kb reads of seed + 2, ``-task blastn``: the candidates' K2 jobs and
+the K1 seeds, as ``chip_smoke.py`` does) and times one launch of each
+kernel from a CUDA graph of 100 (``tools.timing.graph_ms``), which a
+wrapper that synchronises cannot give:
+
+  * K2, this tree's wrapper, at config 2's jobs, at its longest job alone
+    (one warp's row chain) and at prof_gapped's alive and dead workloads,
+    beside its wrapper call (CUDA events);
+  * with ``--parent DIR``, the K2 of another checkout (DIR's
+    ``gblastn_tpu_torch/csrc/gapped_band.cu``, built alone and launched
+    through its C entry, the one without a launch order), held bit-equal
+    to this tree's and timed in turns: parent, this tree, this tree,
+    parent;
+  * K1 through its C entry at config 1's and config 2's seeds (its
+    wrapper checks ranges on the card), held bit-equal to its wrapper.
+
+Run on the card:
+    python -m gblastn_tpu_torch.tools.prof_launch [--parent DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from gblastn_tpu_torch.ops import _build
+from gblastn_tpu_torch.ops import gapped as og
+from gblastn_tpu_torch.ops import ungapped as ung
+from gblastn_tpu_torch.tools import prof_gapped
+from gblastn_tpu_torch.tools.timing import call_ms, device_label, graph_ms
+
+C2_QUERIES, C2_QUERY_LEN = 200, 1500
+
+
+def _raw_stream(dev):
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def search_shapes(dev):
+    """(K1 args at config 1, K1 args at config 2, K2 (args, keywords) at
+    config 2's candidates): the inputs the search path gives the kernels."""
+    from gblastn_tpu_torch import (
+        FastaRecord,
+        SequenceDB,
+        blastn_options,
+        megablast_options,
+    )
+    from gblastn_tpu_torch.engine.gapped import gapped_filter_jobs
+    from gblastn_tpu_torch.engine.search import (
+        _build_gapped_filter,
+        setup_batch,
+    )
+    from gblastn_tpu_torch.engine.seeding import run_seeding, ungapped_inputs
+    from gblastn_tpu_torch.tools.workloads import (
+        GENOME_LEN,
+        NUM_QUERIES,
+        QUERY_LEN,
+        SEED,
+        make_genome,
+        sample_reads,
+    )
+
+    rng = np.random.default_rng(SEED)
+    genome = make_genome(rng, GENOME_LEN)
+    pairs, _ = sample_reads(rng, genome, NUM_QUERIES, QUERY_LEN, "w0_")
+    db = SequenceDB.from_records([FastaRecord("ecoli_synth", "", genome)],
+                                 title="ecoli_synth")
+    keys = ("word_size", "lut_word", "scan_step", "context_offsets",
+            "x_dropoffs")
+    b1 = setup_batch([FastaRecord(n, "", s) for n, s in pairs], db,
+                     megablast_options(evalue=1e-5, max_target_seqs=10), dev)
+    k1_c1 = ungapped_inputs(b1.seed_dev, **{k: b1.seed_kw[k]
+                                            for k in keys})[1]
+    rng2 = np.random.default_rng(SEED + 2)
+    pairs2, _ = sample_reads(rng2, genome, C2_QUERIES, C2_QUERY_LEN, "b")
+    b2 = setup_batch([FastaRecord(n, "", s) for n, s in pairs2], db,
+                     blastn_options(evalue=1e-5, max_target_seqs=10), dev)
+    k1_c2 = ungapped_inputs(b2.seed_dev, **{k: b2.seed_kw[k]
+                                            for k in keys})[1]
+    init = run_seeding(b2.seed_dev, **b2.seed_kw)
+    dgd = _build_gapped_filter(b2)
+    jobs = gapped_filter_jobs(init, b2.qblock, db.starts, db.lengths,
+                              b2.params, dgd)
+    k2 = ((dgd.query, dgd.subject2, dgd.matrix16, jobs),
+          dict(rows=dgd.rows, gap_open=dgd.gap_open,
+               gap_extend=dgd.gap_extend))
+    return k1_c1, k1_c2, k2
+
+
+def longest_job(jobs, q_len, s_len, rows):
+    """The job set's first job in launch order (the longest row budget),
+    alone: what one warp's row chain takes without the rest."""
+    j = int(jobs.order[0])
+    one = og.GappedJobs(*(t[j: j + 1].cpu() for t in (
+        jobs.a0, jobs.b0, jobs.m, jobs.n, jobs.x)),
+        n_right=int(j < jobs.n_right))
+    return og.check_jobs(one, q_len, s_len, rows).to(jobs.m.device)
+
+
+def k1_launch(args):
+    """fn() launching K1 through its C entry on the current stream, and
+    its five outputs."""
+    fn = _build.load().gblastn_ungapped_xdrop
+    dev = args[0].device
+    n = args[3].numel()
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(5)]
+    ptrs = [a.data_ptr() for a in args]
+    optrs = [o.data_ptr() for o in outs]
+
+    def launch():
+        rc = fn(*ptrs, n, *optrs, _raw_stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+    return launch, outs
+
+
+def k2_launch(lib, args, kw):
+    """fn() launching the parent commit's K2 (a library from
+    ``_build.build_one``; its C entry has no launch order) on the current
+    stream, and its (score, flags)."""
+    fn = lib.gblastn_gapped_band
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3)
+    query, subject2, matrix16, jobs = args
+    dev = query.device
+    J = len(jobs)
+    score = torch.empty(J, dtype=torch.int32, device=dev)
+    flags = torch.empty(J, dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in (query, subject2, matrix16, jobs.a0,
+                                   jobs.b0, jobs.m, jobs.n, jobs.x)]
+    ints = (J, jobs.n_right, kw["rows"], kw["gap_open"], kw["gap_extend"])
+
+    def launch():
+        rc = fn(*ptrs, *ints, score.data_ptr(), flags.data_ptr(),
+                _raw_stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
+    return launch, (score, flags)
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m gblastn_tpu_torch.tools.prof_launch",
+        description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose K2 to time beside this tree's")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("prof_launch: needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    label = device_label(dev)
+    print(f"device: {label}")
+    rec = {"device": label}
+    ok = True
+
+    k1_c1, k1_c2, (k2_args, k2_kw) = search_shapes(dev)
+    q, s2, mat, kw_pg, sets = prof_gapped.workload(dev, n_sets=1)
+    k2_cases = {"config2": (k2_args, k2_kw),
+                "config2_longest": (k2_args[:3] + (longest_job(
+                    k2_args[3], k2_args[0].numel(), k2_args[1].numel(),
+                    k2_kw["rows"]),), k2_kw),
+                "alive": ((q, s2, mat, sets["alive"][0]), kw_pg),
+                "dead": ((q, s2, mat, sets["dead"][0]), kw_pg)}
+
+    for name, a in (("config1", k1_c1), ("config2", k1_c2)):
+        launch, outs = k1_launch(a)
+        launch()
+        same = _same(outs, ung.ungapped_extend_window(*a))
+        ok &= same
+        one = graph_ms(launch)
+        call = call_ms(lambda: ung.ungapped_extend_window(*a), 20, "cuda")
+        rec[f"k1_{name}"] = {"seeds": a[3].numel(), "ms_graph": one,
+                             "ms_call": call, "bit_equal": same}
+        print(f"k1 {name}: {a[3].numel()} seeds, one launch {one:.4f} ms, "
+              f"wrapper call {call:.4f} ms, bit-equal {same}  [{label}]",
+              flush=True)
+
+    parent = None
+    if args.parent is not None:
+        parent = _build.build_one(
+            args.parent / "gblastn_tpu_torch" / "csrc" / "gapped_band.cu",
+            "gapped_band_parent")
+
+    for name, (a, kw) in k2_cases.items():
+        want = og.banded_gapped_scores(*a, **kw)
+        launches = {"this": lambda: og.banded_gapped_scores(*a, **kw)}
+        turns = ["this", "this"]
+        if parent is not None:
+            launch, out = k2_launch(parent, a, kw)
+            launch()
+            same = _same(out, want)
+            ok &= same
+            print(f"k2 {name} parent: bit-equal {same}", flush=True)
+            launches["parent"] = launch
+            turns = ["parent", "this", "this", "parent"]
+        one = {}
+        for who in turns:
+            counted = (og.banded_gapped_scores,) if who == "this" else ()
+            one.setdefault(who, []).append(
+                graph_ms(launches[who], counted=counted))
+        call = call_ms(lambda: og.banded_gapped_scores(*a, **kw), 20, "cuda")
+        rec[f"k2_{name}"] = {"jobs": len(a[3]), "ms_graph": one,
+                             "ms_call": call}
+        print(f"k2 {name}: {len(a[3])} jobs, rows {kw['rows']}, one launch "
+              + ", ".join(f"{w} " + " / ".join(f"{t:.4f}" for t in v)
+                          for w, v in one.items())
+              + f" ms; wrapper call {call:.4f} ms  [{label}]", flush=True)
+    rec["ok"] = bool(ok)
+    print(json.dumps(rec))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -67,18 +67,76 @@ def test_gapped_kernel_bit_equal_to_plain_version():
     the query, a short row budget (FLAG_ROWS) and empty jobs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from gblastn_tpu_torch.engine.gapped import device_gapped_params
     from gblastn_tpu_torch.ops.gapped import (
         banded_gapped_scores,
         banded_gapped_scores_ref,
-        gapped_jobs,
     )
+
+    dev = torch.device("cuda:0")
+    for args, kw in _gapped_cases(dev):
+        before = banded_gapped_scores.launches
+        got = banded_gapped_scores(*args, **kw)
+        want = banded_gapped_scores_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert banded_gapped_scores.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+        flags = want[1].cpu().numpy()
+        assert (flags & 1).any() and (flags & 2).any()
+
+
+@pytest.mark.cuda
+def test_gapped_kernel_in_a_cuda_graph():
+    """K2's launch waits on nothing, so a CUDA graph captures it: after a
+    replay the graph's outputs equal the plain version's, the capture is
+    counted in ``captured`` and not in ``launches``, and a job set that
+    check_jobs did not check is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from gblastn_tpu_torch.ops.gapped import (
+        banded_gapped_scores,
+        banded_gapped_scores_ref,
+    )
+
+    dev = torch.device("cuda:0")
+    for args, kw in _gapped_cases(dev):
+        want = banded_gapped_scores_ref(*args, **kw)
+        banded_gapped_scores(*args, **kw)           # warm-up, outside
+        torch.cuda.synchronize()
+        launches = banded_gapped_scores.launches
+        captured = banded_gapped_scores.captured
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            got = banded_gapped_scores(*args, **kw)
+        assert banded_gapped_scores.captured == captured + 1
+        assert banded_gapped_scores.launches == launches
+        for _ in range(2):
+            g.replay()
+            torch.cuda.synchronize()
+            for a, w in zip(got, want):
+                assert torch.equal(a, w)
+        unchecked = dataclasses.replace(args[3], checked=None)
+        with pytest.raises(ValueError, match="check_jobs"):
+            banded_gapped_scores(*args[:3], unchecked, **kw)
+        assert banded_gapped_scores.launches == launches
+
+
+def _gapped_cases(dev):
+    """((query, subject, matrix, jobs), keywords) on ``dev`` for both
+    scorings: a small random job set with planted stretches and a long
+    insertion (band edge), N in the query, a short row budget (FLAG_ROWS)
+    and empty jobs; jobs checked on the host (check_jobs), then moved; the
+    third case reads query and subject through views at odd byte offsets
+    (the kernel's copies align addresses, not indices)."""
+    from gblastn_tpu_torch.engine.gapped import device_gapped_params
+    from gblastn_tpu_torch.ops.gapped import check_jobs, gapped_jobs
     from gblastn_tpu_torch.params.options import (
         blastn_options,
         megablast_options,
     )
 
-    dev = torch.device("cuda:0")
     rng = np.random.default_rng(11)
     S, Q, n = 40000, 30000, 600
     sub = rng.integers(0, 4, S).astype(np.int8)
@@ -106,22 +164,25 @@ def test_gapped_kernel_bit_equal_to_plain_version():
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    for opts, gxd in ((blastn_options(), 33), (megablast_options(), 27)):
+    def view(a, off):
+        """a on the card as a view ``off`` bytes into a larger buffer."""
+        buf = torch.zeros(len(a) + off, dtype=t(a[:1]).dtype, device=dev)
+        buf[off:] = t(a)
+        return buf[off:]
+
+    h = torch.from_numpy
+    cases = []
+    for opts, gxd, offs in ((blastn_options(), 33, (0, 0)),
+                            (megablast_options(), 27, (0, 0)),
+                            (blastn_options(), 33, (3, 7))):
         mat, _dbl, go, ge, xd = device_gapped_params(opts, gxd)
         x = np.where(rng.random(n) < 0.1, 400, xd).astype(np.int32)
-        jobs = gapped_jobs(t(qs), t(ss), t(q_lo), t(q_hi), t(s_lo),
-                           t(s_hi), t(x))
-        args = (t(q), t(sub), t(mat), jobs)
-        kw = dict(rows=256, gap_open=go, gap_extend=ge)
-        before = banded_gapped_scores.launches
-        got = banded_gapped_scores(*args, **kw)
-        want = banded_gapped_scores_ref(*args, **kw)
-        torch.cuda.synchronize()
-        assert banded_gapped_scores.launches == before + 1
-        for g, w in zip(got, want):
-            assert g.is_cuda and torch.equal(g, w)
-        flags = want[1].cpu().numpy()
-        assert (flags & 1).any() and (flags & 2).any()
+        jobs = check_jobs(gapped_jobs(h(qs), h(ss), h(q_lo), h(q_hi),
+                                      h(s_lo), h(s_hi), h(x)), Q, S, 256)
+        cases.append(((view(q, offs[0]), view(sub, offs[1]), t(mat),
+                       jobs.to(dev)),
+                      dict(rows=256, gap_open=go, gap_extend=ge)))
+    return cases
 
 
 @pytest.mark.cuda

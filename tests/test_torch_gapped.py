@@ -139,6 +139,145 @@ def test_plain_version_matches_oracle(kind):
     assert (score.numpy() > 100).sum() >= 15
 
 
+def test_scan_reach_within_tpu_steps():
+    """The port's reach (band positions the horizontal-gap scan needs)
+    never exceeds what the TPU kernel's truncated scan covers: 2^steps
+    positions back from _scan_steps, for the batch's X unbucketed."""
+    assert og.scan_reach(33, 5, 2, 2) == 23            # config 2
+    assert og.scan_reach(54, 0, 5, 2) == 14            # megablast greedy
+    assert og.scan_reach(400, 5, 2, 2) == og.W
+    assert og.scan_reach(33, 5, 0, 2) == og.W
+    for x in range(-5, 700, 7):
+        for go in (0, 1, 2, 5, 11):
+            for ge in (0, 1, 2, 3, 5):
+                for rmax in (-3, 0, 1, 2, 4, 10):
+                    g = og.scan_reach(x, go, ge, rmax)
+                    assert 1 <= g <= og.W
+                    steps = jpg._scan_steps(max(x, go + ge), go, ge, rmax)
+                    assert 2 ** steps >= g, (x, go, ge, rmax)
+
+
+def _long_gap_jobs(rng, n_seeds):
+    """Planted stretches with an insertion or a deletion of 1-40 bases
+    (near and past the scan's reach at the scorings' X), seeds before the
+    gap, X from the scoring's own to 400."""
+    S, Q = 20000, 20000
+    sub = rng.integers(0, 4, S).astype(np.int8)
+    q = rng.integers(0, 4, Q).astype(np.uint8)
+    qs, ss = [], []
+    for k in range(n_seeds):
+        L = int(rng.integers(120, 300))
+        so = int(rng.integers(500, S - L - 500))
+        qo = int(rng.integers(500, Q - L - 600))
+        seg = sub[so: so + L].astype(np.uint8).copy()
+        cut, gap = int(rng.integers(20, L // 2)), int(rng.integers(1, 41))
+        if k % 2:
+            seg = np.concatenate([seg[:cut], rng.integers(0, 4, gap).astype(
+                np.uint8), seg[cut:]])
+        else:
+            seg = np.concatenate([seg[:cut], seg[cut + gap:]])
+        q[qo: qo + len(seg)] = seg
+        d = int(rng.integers(0, 15))
+        qs.append(qo + d)
+        ss.append(so + d)
+    qs, ss = np.array(qs, np.int64), np.array(ss, np.int64)
+    return (sub, q, qs, ss, np.maximum(qs - 400, 0), np.minimum(qs + 400, Q),
+            np.maximum(ss - 400, 0), np.minimum(ss + 400, S))
+
+
+@pytest.mark.parametrize("case", ["oracle", "long_gap"])
+@pytest.mark.parametrize("kind", ["blastn", "megablast"])
+def test_cut_scan_matches_full_scan(kind, case):
+    """The kernel's form of the scan, a window over scan_reach positions
+    with u and E not gated, gives the full scan's score and flags on the
+    oracle test's jobs and on jobs with long gaps, for X from the
+    scoring's own up to 400 (which needs the whole band)."""
+    opts, _jopts, gxd = _scoring(kind)
+    matrix, _dbl, go, ge, xd = teg.device_gapped_params(opts, gxd)
+    if case == "oracle":
+        rng = np.random.default_rng(7 if kind == "blastn" else 8)
+        n_seeds, rows = 110, 256
+        sub, q, qs, ss, q_lo, q_hi, s_lo, s_hi = _random_jobs(rng, n_seeds)
+        x = np.where(rng.random(n_seeds) < 0.15, 400, xd)
+    else:
+        rng = np.random.default_rng(17 if kind == "blastn" else 18)
+        n_seeds, rows = 96, 512
+        sub, q, qs, ss, q_lo, q_hi, s_lo, s_hi = _long_gap_jobs(rng, n_seeds)
+        x = rng.choice([xd, 2 * xd, 100, 400], n_seeds)
+    t = torch.from_numpy
+    jobs = og.gapped_jobs(t(qs), t(ss), t(q_lo), t(q_hi), t(s_lo),
+                          t(s_hi), t(x.astype(np.int32)))
+    args = (t(q), t(sub), t(np.ascontiguousarray(matrix)), jobs)
+    kw = dict(rows=rows, gap_open=go, gap_extend=ge)
+    full = og.banded_gapped_scores_ref(*args, **kw)
+    cut = og.banded_gapped_scores_ref(*args, **kw, cut_scan=True)
+    assert torch.equal(cut[0], full[0]) and torch.equal(cut[1], full[1])
+    assert (full[0] > 60).sum() >= 20
+
+
+def test_window_max():
+    """_window_max against a direct loop, every window length."""
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy(rng.integers(-1000, 1000, (og.W, og.W)))
+    g = torch.arange(1, og.W + 1)
+    got = og._window_max(u, g)
+    for a in range(og.W):
+        for p in (0, 1, 2, 5, 64, 100, og.W - 1):
+            lo = max(p - int(g[a]), 0)
+            want = int(u[a, lo:p].max()) if p > lo else og.NEG
+            assert int(got[a, p]) == want, (a, p)
+
+
+def test_job_order_longest_first():
+    """job_order is a permutation by row budget min(M, rows, N + 64),
+    largest first (empty jobs last), ties in the caller's order, and
+    scattering results back by it restores the caller's order exactly."""
+    rng = np.random.default_rng(3)
+    J, rows = 5000, 512
+    m = torch.from_numpy(rng.integers(-5, 2000, J).astype(np.int32))
+    n = torch.from_numpy(rng.integers(-5, 2000, J).astype(np.int32))
+    n[::13] = 0
+    order = og.job_order(m, n, rows)
+    assert order.dtype == torch.int32
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(J, dtype=torch.int32))
+    budget = torch.where((m > 0) & (n > 0), torch.minimum(
+        m.clamp(max=rows), n + 64), 0)
+    assert torch.equal(og.row_budget(m, n, rows), budget)
+    b = budget[order.long()]
+    assert bool((b[:-1] >= b[1:]).all())
+    tie = b[:-1] == b[1:]
+    assert bool((order[:-1][tie] < order[1:][tie]).all())
+    assert int(b[0]) == rows and int(b[-1]) == 0
+    # the kernel: slot k runs job order[k] and writes at that index
+    result = torch.from_numpy(rng.integers(0, 10**6, J))
+    out = torch.empty_like(result)
+    out[order.long()] = result[order.long()]
+    assert torch.equal(out, result)
+    inv = torch.empty_like(order)
+    inv[order.long()] = torch.arange(J, dtype=torch.int32)
+    assert torch.equal(order[inv.long()], torch.arange(J, dtype=torch.int32))
+
+
+def test_check_jobs_sets_order_and_moves_once():
+    t = torch.tensor
+    jobs = og.gapped_jobs(t([10, 50]), t([100, 300]), t([0, 40]),
+                          t([30, 90]), t([90, 200]), t([150, 400]),
+                          t([20, 30], dtype=torch.int32))
+    checked = og.check_jobs(jobs, 100, 400, 256)
+    assert checked.checked == (100, 400, 256)
+    assert checked.order.tolist() == [1, 3, 0, 2]
+    assert checked.to("cpu") is checked
+    assert og._covered(checked, 100, 400, 256)
+    assert og._covered(checked, 120, 500, 128)
+    assert not og._covered(checked, 99, 400, 256)
+    assert not og._covered(checked, 100, 400, 512)
+    assert not og._covered(jobs, 100, 400, 256)
+    with pytest.raises(ValueError, match="x_drop"):
+        og.check_jobs(dataclasses.replace(
+            jobs, x=t([20, og.MAX_X], dtype=torch.int32)), 100, 400, 256)
+
+
 def test_fold_and_job_layout():
     t = torch.tensor
     jobs = og.gapped_jobs(t([10, 50]), t([100, 300]), t([0, 40]),
@@ -203,6 +342,19 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="16 x 4"):
         og._check_kernel_args(q, s, mat.reshape(8, 8),
                               jobs(50, 100, 0, 100, 0, 200), 256)
+    # off the CPU the job set must come from check_jobs (a check there
+    # would wait on the card), for this query, subject and rows
+    meta = [a.to("meta") for a in (q, s, mat)]
+    with pytest.raises(ValueError, match="check_jobs"):
+        og._check_kernel_args(*meta, jobs(50, 100, 0, 100, 0, 200).to(
+            "meta"), 256)
+    ok = og.check_jobs(jobs(50, 100, 0, 100, 0, 200), 100, 200, 256)
+    og._check_kernel_args(*meta, ok.to("meta"), 256)
+    with pytest.raises(ValueError, match="check_jobs"):
+        og._check_kernel_args(*meta, ok.to("meta"), 512)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        og.banded_gapped_scores(*meta, ok.to("meta"), rows=256,
+                                gap_open=5, gap_extend=2)
 
 
 def _planted_records():

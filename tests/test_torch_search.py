@@ -244,3 +244,26 @@ def test_outside_the_slice_refuses(workload):
     with pytest.raises(NotImplementedError, match="item 9"):
         torch_main(["blastn", "-query", "q.fa", "-db", "db", "-mode", "2",
                     "-device", "cpu"])
+
+
+@pytest.mark.parametrize("value", ["x", ""])
+def test_non_numeric_shards_are_ignored(workload, tmp_path, monkeypatch,
+                                        capsys, value):
+    """GBLASTN_TPU_SHARDS that is not a number (or empty) is ignored with
+    the reference's note on stderr (gblastn_tpu/engine/search.py:486-493),
+    and the search writes the bytes of a run without it."""
+    (tmp_path / "q.fa").write_text("".join(
+        f">{r.seq_id} {r.title}\n{r.sequence}\n" for r in workload["reads"]))
+    workload["db"].save(tmp_path / "db")
+    args = ["blastn", "-query", str(tmp_path / "q.fa"), "-db",
+            str(tmp_path / "db"), "-outfmt", "6", "-device", "cpu"]
+    monkeypatch.delenv("GBLASTN_TPU_SHARDS", raising=False)
+    assert torch_main(args + ["-out", str(tmp_path / "unset.tsv")]) == 0
+    assert "GBLASTN_TPU_SHARDS" not in capsys.readouterr().err
+    monkeypatch.setenv("GBLASTN_TPU_SHARDS", value)
+    assert torch_main(args + ["-out", str(tmp_path / "set.tsv")]) == 0
+    assert ("gblastn_tpu: ignoring non-numeric GBLASTN_TPU_SHARDS"
+            in capsys.readouterr().err)
+    want = (tmp_path / "unset.tsv").read_bytes()
+    assert want.count(b"\n") >= 7
+    assert (tmp_path / "set.tsv").read_bytes() == want

@@ -13,6 +13,7 @@ import torch
 from gblastn_tpu_torch.tools import (
     prof_e2e,
     prof_gapped,
+    prof_launch,
     prof_scan_parts,
     prof_scan_rate,
     timing,
@@ -122,6 +123,31 @@ def test_tool_without_a_card_raises(tool):
     main, extra, _ = TOOLS[tool]
     with pytest.raises(RuntimeError, match="is_available"):
         main(extra)
+
+
+def test_prof_launch_needs_a_card(capsys):
+    """prof_launch times kernels on the card only: without one it exits 2
+    with a note and measures nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    assert prof_launch.main(["--parent", "x"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def test_prof_gapped_workload_is_checked_and_ordered():
+    """prof_gapped.workload's job sets come from check_jobs: the launch
+    order is set, longest row budget first, and the ranges were checked
+    for the workload's query, subject and rows."""
+    from gblastn_tpu_torch.ops.gapped import row_budget
+
+    q, s2, _mat, kw, sets = prof_gapped.workload(torch.device("cpu"),
+                                                 small=True, n_sets=2)
+    for name in ("alive", "dead"):
+        assert len(sets[name]) == 2
+        for jobs in sets[name]:
+            assert jobs.checked == (q.numel(), s2.numel(), kw["rows"])
+            b = row_budget(jobs.m, jobs.n, kw["rows"])[jobs.order.long()]
+            assert bool((b[:-1] >= b[1:]).all())
 
 
 def test_scan_parts_records_give_the_kernels_entry(capsys):
