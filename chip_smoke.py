@@ -5,12 +5,15 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It
 builds the CUDA kernels from csrc/ (one nvcc per source, all started
-together), holds each against its plain PyTorch version on the card
-(K2 also replayed from a CUDA graph that captured its wrapper, which
+together; ptxas's registers and spills of each kernel, K1 without a
+spill), holds each against its plain PyTorch version on the card (K1 and
+K2 also replayed from a CUDA graph that captured the wrapper, which
 fails if the wrapper waits on the card), times K1 and K2 as one launch
-alone in a CUDA graph beside their wrapper calls, and drives the port's
-paths end to end, each with every kernel's launch counter set to 0 just
-before it and read just after:
+alone in a CUDA graph beside their wrapper calls, prints K1's modelled
+lockstep lane-steps against its walk steps and the share of the walk
+steps on seeds the one-hit replay saves (configs 1 and 2), and drives
+the port's paths end to end, each with every kernel's launch counter set
+to 0 just before it and read just after:
 
 1. megablast, config 1 of bench.py (500 x 1 kb reads against a 4.6 Mb
    genome), through the CLI: K1; tabular bytes equal to the plain-PyTorch
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,45 +103,93 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def compare_k1(args, label, card, reps):
+def _kernel_name(mangled):
+    """The name '<len><name>' ending in '_kernel' inside a mangled
+    symbol, else the symbol."""
+    for i, ch in enumerate(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+            name = mangled[j: j + int(mangled[i:j])]
+            if name.endswith("_kernel") and name.isidentifier():
+                return name
+    return mangled
+
+
+def ptxas_kernels(log):
+    """(source, kernel, registers, spill stores, spill loads) of every
+    entry function in nvcc's -Xptxas=-v output (``_build.build_log``,
+    whose sources open with '== name')."""
+    out, src, fn, spill = [], None, None, (0, 0)
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif "Compiling entry function" in ln:
+            m = re.search(r"'([^']+)'", ln)
+            fn, spill = _kernel_name(m.group(1) if m else "?"), (0, 0)
+        elif "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            spill = (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+        elif "Used" in ln and "registers" in ln and fn is not None:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            out.append((src, fn, regs, *spill))
+            fn = None
+    return out
+
+
+def compare_k1(args, label, card, reps, replay=None):
     """K1 against its plain version on the same CUDA tensors: bit-equal
-    on all five outputs; a wrapper call timed back to back and one launch
-    alone through K1's C entry in a CUDA graph (its wrapper checks ranges
-    on the card, so it cannot be captured). Returns (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, ms_graph)."""
+    on all five outputs, with no seed flagged out of range, also when
+    replayed from a CUDA graph that captured the wrapper's call (the
+    capture fails if the wrapper waits on the card); one launch alone
+    from that graph and a wrapper call timed back to back. Prints the
+    modelled lockstep lane-steps against the plain version's walk steps
+    and, with ``replay`` = (ctx, seed_kw), the share of the walk steps
+    that fall on seeds the one-hit replay saves. Returns a dict."""
     import torch
 
-    from gblastn_tpu_torch.ops.ungapped import (
-        ungapped_extend_window,
-        ungapped_extend_window_ref,
-    )
-    from gblastn_tpu_torch.tools.prof_launch import k1_launch
+    from gblastn_tpu_torch.ops import ungapped as ung
+    from gblastn_tpu_torch.tools.prof_launch import replay_saved
     from gblastn_tpu_torch.tools.timing import call_ms, graph_ms
 
-    got = ungapped_extend_window(*args)
-    *want, steps = ungapped_extend_window_ref(*args, return_steps=True)
-    torch.cuda.synchronize()
-    err = max(
-        int((g.long() - w.long()).abs().max()) if g.numel() else 0
-        for g, w in zip(got, want)
-    )
+    k1 = ung.ungapped_extend_window
+    n = args[3].numel()
+    *want, steps = ung.ungapped_extend_window_ref(*args, return_steps=True)
+    got = k1(*args)
+    ung.check_flags(got[4])
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
     check(err == 0, f"K1 differs from its plain version on {label} "
                     f"(max abs err {err})")
-    ms = call_ms(lambda: ungapped_extend_window(*args), reps, "cuda")
-    launch, outs = k1_launch(args)
-    ms_graph = graph_ms(launch)
-    check(all(torch.equal(o, g) for o, g in zip(outs, got)),
-          f"K1's C entry, replayed in a CUDA graph, differs on {label}")
-    plain_ms = call_ms(lambda: ungapped_extend_window_ref(*args), 3,
+    last = []
+
+    def launch():
+        last[:] = k1(*args)
+    ms_graph = graph_ms(launch, counted=(k1,))
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, w) for o, w in zip(last, want)),
+          f"K1 replayed from a CUDA graph differs on {label}")
+    ms = call_ms(lambda: k1(*args), reps, "cuda")
+    plain_ms = call_ms(lambda: ung.ungapped_extend_window_ref(*args), 3,
                        "cuda")
-    n = args[3].numel()
-    steps = int(steps.sum())
+    walk = int(steps.sum())
+    lanes = ung.lockstep_lane_steps(steps)
     # query, subject, table and 5 int32 per seed in; 5 int32 per seed out
-    bound_ms, by = bound(nbytes(*args) + 20 * n, K1_OPS_PER_STEP * steps)
-    print(f"k1 {label}: n={n} seeds, {steps} walk steps, bit-equal, "
-          f"kernel {ms:.4f} ms a call, {ms_graph:.4f} ms one launch, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})  [{card}]")
-    return err, ms, plain_ms, bound_ms, by, ms_graph
+    bound_ms, by = bound(nbytes(*args) + 20 * n, K1_OPS_PER_STEP * walk)
+    note = ""
+    if replay is not None:
+        saved = torch.from_numpy(replay_saved(args, want, *replay))
+        share = int(steps[:, saved.to(steps.device)].sum()) / walk
+        note = (f"; the replay saves {int(saved.sum())} seeds, which hold "
+                f"{100 * share:.1f}% of the walk steps")
+    print(f"k1 {label}: n={n} seeds, {walk} walk steps, bit-equal (also "
+          f"from a graph); one launch {ms_graph:.4f} ms, a call {ms:.4f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); "
+          f"lockstep lane-steps (model) {lanes} ({100 * walk / lanes:.0f}% "
+          f"busy){note}  [{card}]")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "ms_graph": ms_graph}
 
 
 def compare_k2(args, kw, label, card, reps):
@@ -194,6 +246,24 @@ def compare_k2(args, kw, label, card, reps):
           f"call, {ms_graph:.4f} ms one launch, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({by})  [{card}]")
     return err, ms, plain_ms, bound_ms, by, ms_graph
+
+
+def k1_entry(c2, c1, rand, launches, by_path, registers):
+    """The kernels line's ungapped_xdrop entry from compare_k1's records:
+    config 2's times and bound, config 1's and the random set's beside
+    them, and ptxas's registers."""
+    entry = {"name": "ungapped_xdrop", "route": "cuda",
+             "source": K1_SOURCE, "replaces": K1_REPLACES,
+             "launches": launches,
+             "max_abs_err": max(c2["err"], c1["err"], rand["err"]),
+             "ms": c2["ms"], "plain_ms": c2["plain_ms"],
+             "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
+             "library_ms": None, "ms_graph": c2["ms_graph"],
+             "registers": registers, "launches_by_path": by_path}
+    for tag, r in (("config1", c1), ("random", rand)):
+        entry.update({f"{k}_{tag}": r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "ms_graph")})
+    return entry
 
 
 def gather_entry(recs, launches, sweep=None):
@@ -421,9 +491,15 @@ def main() -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     _build.load()
     print(f"build: {time.time() - t0:.1f} s")
-    for ln in _build.build_log.splitlines():
-        if ln.startswith("==") or "registers" in ln or "spill" in ln:
-            print(f"ptxas: {ln.strip()}")
+    ptxas = ptxas_kernels(_build.build_log)
+    for src, fn, regs, st, ld in ptxas:
+        print(f"ptxas: {src} {fn}: {regs} registers, spill stores {st} / "
+              f"loads {ld} bytes")
+    k1_regs = {fn: regs for src, fn, regs, _st, _ld in ptxas
+               if src == Path(K1_SOURCE).name}
+    check(len(k1_regs) == 1, f"ptxas reported K1's kernels as {k1_regs}")
+    check(all(st == ld == 0 for src, _fn, _r, st, ld in ptxas
+              if src == Path(K1_SOURCE).name), "K1 spills registers")
 
     # config-1 workload (bench.py's recipe and seed)
     rng = np.random.default_rng(SEED)
@@ -441,11 +517,12 @@ def main() -> int:
     kw1 = {k: batch.seed_kw[k] for k in ("word_size", "lut_word",
                                           "scan_step", "context_offsets",
                                           "x_dropoffs")}
-    _ctx, k1_args, _n = ungapped_inputs(batch.seed_dev, **kw1)
-    k1_c1 = compare_k1(k1_args, "config-1 batch seeds", card, 50)
+    ctx1, k1_args, _n = ungapped_inputs(batch.seed_dev, **kw1)
+    k1_c1 = compare_k1(k1_args, "config-1 batch seeds", card, 50,
+                       replay=(ctx1, batch.seed_kw))
     k1_rand = compare_k1(random_k1_args(dev),
                          "random seeds, N/R/Y, 12 subjects", card, 20)
-    del batch, k1_args
+    del batch, k1_args, ctx1
 
     # 4. K2 against its plain version on the card: random jobs of both
     # scorings
@@ -575,12 +652,13 @@ def main() -> int:
     batch2 = setup_batch(reads2, db, b_opts, dev)
     check(batch2.seed_kw["word_size"] == 11, "config 2 is not word 11")
     kw2 = {k: batch2.seed_kw[k] for k in kw1}
-    _ctx, k1_args2, n_raw2 = ungapped_inputs(batch2.seed_dev, **kw2)
+    ctx2, k1_args2, n_raw2 = ungapped_inputs(batch2.seed_dev, **kw2)
     print(f"config2 seeding: lut word {kw2['lut_word']}, scan step "
           f"{kw2['scan_step']}, {n_raw2} raw seeds, "
           f"{k1_args2[3].numel()} K1 seeds")
-    k1_c2 = compare_k1(k1_args2, "config-2 batch seeds", card, 20)
-    del k1_args2
+    k1_c2 = compare_k1(k1_args2, "config-2 batch seeds", card, 20,
+                       replay=(ctx2, batch2.seed_kw))
+    del k1_args2, ctx2
     init2 = run_seeding(batch2.seed_dev, **batch2.seed_kw)
     dgd = _build_gapped_filter(batch2)
     check(dgd is not None, "the gapped filter is off for config 2")
@@ -746,14 +824,8 @@ def main() -> int:
     k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": "ungapped_xdrop", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": c2_launches[0],
-         "max_abs_err": max(k1_c1[0], k1_rand[0], k1_c2[0]),
-         "ms": k1_c2[1], "plain_ms": k1_c2[2], "bound_ms": k1_c2[3],
-         "bound_by": k1_c2[4], "library_ms": None, "ms_graph": k1_c2[5],
-         "ms_config1": k1_c1[1], "plain_ms_config1": k1_c1[2],
-         "bound_ms_config1": k1_c1[3], "ms_graph_config1": k1_c1[5],
-         "launches_by_path": {p: c[0] for p, c in paths.items()}},
+        k1_entry(k1_c2, k1_c1, k1_rand, c2_launches[0],
+                 {p: c[0] for p, c in paths.items()}, k1_regs),
         {"name": "gapped_band", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": c2_launches[1],
          "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],

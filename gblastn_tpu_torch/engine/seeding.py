@@ -22,7 +22,7 @@ import torch
 from gblastn_tpu_torch.utils.profiling import slog
 from gblastn_tpu_torch.engine.resident import ResidentDB
 from gblastn_tpu_torch.ops.seeding import seeding_scan_mini
-from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+from gblastn_tpu_torch.ops.ungapped import check_flags, ungapped_extend_window
 
 
 @dataclass
@@ -239,14 +239,19 @@ def run_seeding(
     **scan_kw,                      # ungapped_inputs keywords
 ) -> InitHits:
     """One-hit seeding pass over the resident database: scan + mini on
-    the device, K1 on every survivor, one fetch, host replay."""
+    the device, K1 on every survivor, one fetch, host replay. A seed that
+    K1 flagged out of range raises ValueError at the fetch, before the
+    replay reads a row."""
     with slog.time("device.seeding.pipeline"):
         ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
-        uq, us, ulen, usc, _flags = ungapped_extend_window(*k1_args)
+        uq, us, ulen, usc, flags = ungapped_extend_window(*k1_args)
         # one device->host fetch of everything the host finish needs
         rows = torch.stack([
             k1_args[3], k1_args[4], ctx.to(torch.int32), uq, us, ulen, usc,
+            flags,
         ]).cpu().numpy()
+    check_flags(rows[7])
+    rows = rows[:7]
     slog.diagnostics.lookup_hits += n_raw
     slog.diagnostics.init_extends += rows.shape[1]
     if rows.shape[1] == 0:

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
 )
 
 _lib = None
-build_log = ""        # nvcc's output of the last build (ptxas register use)
+build_log = ""        # nvcc's output of the library's build (ptxas register
+                      # use), kept beside it and read back when it is current
 
 
 def _nvcc() -> str:
@@ -45,14 +46,20 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library if it is missing or
-    older than a source; returns its path. Raises on a failed build."""
+    """Compile csrc/*.cu into the shared library if it or its build log
+    is missing or older than a source; returns its path and sets
+    ``build_log`` (from the log file when nothing is built). Raises on a
+    failed build."""
     global build_log
     sources = sorted(_SRC_DIR.glob("*.cu"))
     lib_path = BUILD_DIR / _LIB_NAME
-    if lib_path.exists() and all(
-        s.stat().st_mtime <= lib_path.stat().st_mtime for s in sources
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists() and log_path.exists() and all(
+        s.stat().st_mtime <= min(lib_path.stat().st_mtime,
+                                 log_path.stat().st_mtime)
+        for s in sources
     ):
+        build_log = log_path.read_text()
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -89,6 +96,9 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
         os.replace(tmp, lib_path)
+        log_tmp = log_path.with_suffix(f".log.{tag}")
+        log_tmp.write_text(build_log)
+        os.replace(log_tmp, log_path)
     finally:
         tmp.unlink(missing_ok=True)
         for o in objs:
@@ -105,7 +115,7 @@ def load():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 8        # query .. max_r
-            + [ctypes.c_int]             # n
+            + [ctypes.c_int] * 3         # n, Q, S
             + [ctypes.c_void_p] * 5      # five outputs
             + [ctypes.c_void_p]          # stream
         )

@@ -1,8 +1,8 @@
 """K1, the ungapped X-drop extension: wrapper, plain version, tables.
 
 The port's counterpart of ``gblastn_tpu/ops/pallas_ungapped.py``. The
-kernel itself is ``csrc/ungapped_xdrop.cu`` (one thread per seed, no
-window); ``ungapped_extend_window_ref`` is its plain PyTorch version with
+kernel itself is ``csrc/ungapped_xdrop.cu`` (no window; a thread a
+seed); ``ungapped_extend_window_ref`` is its plain PyTorch version with
 the same semantics, and ``ungapped_extend_window`` dispatches on where
 the tensors live: CPU tensors go to the plain version, CUDA tensors to
 the kernel (or an exception). There is no fallback between the two.
@@ -14,6 +14,14 @@ NEG_BIG; a walk stops at the first step whose running sum falls below
 max(best so far, 0) - x, and best moves only on a strictly greater sum.
 Returns int32 (q_start, s_start, length, score, flags) with flags bit 1 /
 bit 2 set when the left / right walk ended at its budget.
+
+Ranges: every seed needs max_l, max_r >= 0, q_off - max_l >= 0, s_off -
+max_l >= 0, q_off + max_r <= Q and s_off + max_r <= S; the plain path
+raises ValueError at once. The kernel also needs 0 <= x_drop < X_LIMIT
+(so that every NEG_BIG step ends a walk in int32). It checks each seed
+itself, so that a launch waits on nothing, and marks a seed out of range
+with FLAG_RANGE (no walk); ``check_flags`` raises ValueError where the
+caller fetches the flags.
 """
 from __future__ import annotations
 
@@ -23,6 +31,10 @@ import torch
 from gblastn_tpu_torch.io.encoding import BLASTNA_TO_NCBI4NA
 
 NEG_BIG = -(1 << 24)
+X_LIMIT = 1 << 23     # the kernel's x_drop < X_LIMIT: NEG_BIG ends a walk
+FLAG_RANGE = 8        # the kernel: the seed's budgets or x_drop out of range
+RANGE_ERROR = "a walk budget reaches outside query or subject"
+FLAG_ERROR = RANGE_ERROR + ", or an x_drop is outside the kernel's [0, 2^23)"
 _CHUNK = 128          # plain version: steps scored per loop iteration
 
 
@@ -95,6 +107,16 @@ def _scores(qp: torch.Tensor, scode: torch.Tensor, c: list[int]):
     )
 
 
+def score_table(table64, device=None) -> torch.Tensor:
+    """int32[1024] score of (packed query byte << 2) | subject code 0..3:
+    the plain version's table, and the table each block of the kernel
+    builds in shared memory from the same constants (table64[64:70])."""
+    c = [int(v) for v in table64[64:70].tolist()]
+    codes = torch.arange(256, device=device)
+    return _scores(codes[:, None], torch.arange(4, device=device),
+                   c).reshape(-1).to(torch.int32)
+
+
 def _walk_ref(query, subject, q0, s0, left, max_steps, x, table):
     """(best, best_pos, stop_step) of one direction for every seed, in
     int64, scoring _CHUNK steps per iteration until every walk stopped
@@ -150,12 +172,9 @@ def ungapped_extend_window_ref(query_packed, subject2, table64, q_off,
                                return_steps: bool = False):
     """Plain PyTorch version of K1 (same arguments and results as
     ``ungapped_extend_window``). With ``return_steps`` it also returns
-    the steps each seed's two walks scored (int64[n]), the work count
-    behind K1's bound."""
-    c = [int(v) for v in table64[64:70].tolist()]
-    codes = torch.arange(256, device=q_off.device)
-    table = _scores(codes[:, None], torch.arange(4, device=q_off.device),
-                    c).reshape(-1)
+    the steps each seed's left and right walk scored, the dropping step
+    included (int64[2, n]): the work count behind K1's bound."""
+    table = score_table(table64, q_off.device).long()
     q0 = q_off.long()
     s0 = s_off.long()
     x = x_drop.long()
@@ -169,8 +188,44 @@ def ungapped_extend_window_ref(query_packed, subject2, table64, q_off,
     outs = (q0 - l_pos, s0 - l_pos, l_pos + r_pos, l_best + r_best, flags)
     outs = tuple(o.to(torch.int32) for o in outs)
     if return_steps:
-        return outs + (l_stop + r_stop,)
+        return outs + (torch.stack([l_stop, r_stop]),)
     return outs
+
+
+def lockstep_lane_steps(steps: torch.Tensor) -> int:
+    """A model of the lane-steps the kernel's lockstep warps run for walks
+    of ``steps`` (int64[2, n], left and right, the dropping step included,
+    as ``ungapped_extend_window_ref(..., return_steps=True)`` gives them):
+    32 x the longest left + right of each warp of 32 seeds in launch
+    order. Against the walk steps, the share of lanes busy. Counted from
+    the plain version's steps, not on the card."""
+    tot = steps.sum(0)
+    pad = (-tot.numel()) % 32
+    tot = torch.cat([tot, tot.new_zeros(pad)]).view(-1, 32)
+    return int(tot.max(1).values.sum()) * 32
+
+
+def check_ranges(Q: int, S: int, q_off, s_off, x_drop, max_l, max_r):
+    """ValueError unless every seed's budgets stay inside a query of Q
+    and a subject of S bytes. The plain path's check; the kernel checks
+    the same per seed, and its x_drop range too (FLAG_RANGE)."""
+    if not q_off.numel():
+        return
+    q, s, ml, mr = (t.long() for t in (q_off, s_off, max_l, max_r))
+    if bool((ml < 0).any() | (mr < 0).any() | ((q - ml) < 0).any()
+            | ((s - ml) < 0).any() | ((q + mr) > Q).any()
+            | ((s + mr) > S).any()):
+        raise ValueError(RANGE_ERROR)
+
+
+def check_flags(flags) -> None:
+    """ValueError if the kernel marked a seed out of range (FLAG_RANGE).
+    ``flags`` is K1's flags output, or a numpy copy of it: a CUDA tensor
+    is fetched, which waits on the card; the search path checks the
+    copy it fetches anyway."""
+    f = flags.cpu().numpy() if isinstance(flags, torch.Tensor) else flags
+    if (np.asarray(f) & FLAG_RANGE).any():
+        raise ValueError(FLAG_ERROR)
 
 
 def _check_kernel_args(query_packed, subject2, table64, seeds):
@@ -185,6 +240,8 @@ def _check_kernel_args(query_packed, subject2, table64, seeds):
             raise ValueError(f"{name} must be contiguous")
     if table64.numel() < 72:
         raise ValueError("table64 must hold 72 entries (make_table64)")
+    if max(query_packed.numel(), subject2.numel()) >= 2**31:
+        raise ValueError("query or subject too long for 32-bit offsets")
     n = seeds[0].numel()
     if n >= 2**31:
         raise ValueError("too many seeds for one launch")
@@ -195,14 +252,22 @@ def _check_kernel_args(query_packed, subject2, table64, seeds):
                 f"seed arrays must be contiguous 1-D int32 of length {n} "
                 f"on {dev}"
             )
-    q_off, s_off, _x, max_l, max_r = (t.long() for t in seeds)
-    if n and bool(
-        (max_l.min() < 0) | (max_r.min() < 0)
-        | ((q_off - max_l).min() < 0) | ((s_off - max_l).min() < 0)
-        | ((q_off + max_r).max() > query_packed.numel())
-        | ((s_off + max_r).max() > subject2.numel())
-    ):
-        raise ValueError("a walk budget reaches outside query or subject")
+
+
+_lib_fns = None
+
+
+def _bind():
+    """The kernel's entry point and PyTorch's raw-stream and capture
+    queries, bound once."""
+    global _lib_fns
+    if _lib_fns is None:
+        from gblastn_tpu_torch.ops import _build
+
+        _lib_fns = (_build.load().gblastn_ungapped_xdrop,
+                    torch._C._cuda_getCurrentRawStream,
+                    torch._C._cuda_isCurrentStreamCapturing)
+    return _lib_fns
 
 
 def ungapped_extend_window(query_packed, subject2, table64, q_off, s_off,
@@ -211,36 +276,47 @@ def ungapped_extend_window(query_packed, subject2, table64, q_off, s_off,
 
     query_packed uint8[Q] (``pack_query``), subject2 int8[S] 2-bit codes,
     table64 int32[72] (``make_table64``), and int32[n] q_off, s_off,
-    x_drop, max_l, max_r. CPU tensors run the plain version; CUDA tensors
-    launch the kernel on the current stream (and count the launch in
-    ``ungapped_extend_window.launches``)."""
+    x_drop, max_l, max_r. CPU tensors run the plain version (after
+    ``check_ranges``). CUDA tensors launch the kernel on the current
+    stream without waiting on the card, so a CUDA graph can capture the
+    call; a seed out of range comes back with FLAG_RANGE, which
+    ``check_flags`` turns into a ValueError. The launch counts in
+    ``ungapped_extend_window.launches``, or, while the stream captures a
+    graph, in ``ungapped_extend_window.captured`` (whoever replays the
+    graph adds it to ``launches`` at each replay, as
+    ``tools.timing.graph_ms`` does)."""
     seeds = (q_off, s_off, x_drop, max_l, max_r)
     tensors = (query_packed, subject2, table64) + seeds
     if all(t.device.type == "cpu" for t in tensors):
+        check_ranges(query_packed.numel(), subject2.numel(), *seeds)
         return ungapped_extend_window_ref(query_packed, subject2, table64,
                                           *seeds)
     _check_kernel_args(query_packed, subject2, table64, seeds)
     dev = query_packed.device
     if dev.type != "cuda":
         raise ValueError(f"ungapped_extend_window: no kernel for {dev}")
-    from gblastn_tpu_torch.ops import _build
-
     n = q_off.numel()
-    outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
-                 for _ in range(5))
+    # the five outputs as rows of one allocation (one allocator call)
+    outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
     if n == 0:
         return outs
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gblastn_ungapped_xdrop(
-            *(t.data_ptr() for t in tensors), n,
-            *(o.data_ptr() for o in outs), stream,
-        )
+    fn, raw_stream, capturing = _lib_fns or _bind()
+    d = dev.index
+    args = (*(t.data_ptr() for t in tensors), n, query_packed.numel(),
+            subject2.numel(), *(o.data_ptr() for o in outs), raw_stream(d))
+    if d == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(d):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"ungapped_xdrop launch failed: CUDA error {rc}")
-    ungapped_extend_window.launches += 1
+    if capturing():
+        ungapped_extend_window.captured += 1
+    else:
+        ungapped_extend_window.launches += 1
     return outs
 
 
 ungapped_extend_window.launches = 0
+ungapped_extend_window.captured = 0

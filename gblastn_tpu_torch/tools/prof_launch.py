@@ -3,19 +3,22 @@
 Builds config 2's workload on the card (bench.py's genome and seed, 200 x
 1.5 kb reads of seed + 2, ``-task blastn``: the candidates' K2 jobs and
 the K1 seeds, as ``chip_smoke.py`` does) and times one launch of each
-kernel from a CUDA graph of 100 (``tools.timing.graph_ms``), which a
-wrapper that synchronises cannot give:
+kernel from a CUDA graph of 100 (``tools.timing.graph_ms``):
 
   * K2, this tree's wrapper, at config 2's jobs, at its longest job alone
     (one warp's row chain) and at prof_gapped's alive and dead workloads,
     beside its wrapper call (CUDA events);
   * with ``--parent DIR``, the K2 of another checkout (DIR's
     ``gblastn_tpu_torch/csrc/gapped_band.cu``, built alone and launched
-    through its C entry, the one without a launch order), held bit-equal
-    to this tree's and timed in turns: parent, this tree, this tree,
-    parent;
-  * K1 through its C entry at config 1's and config 2's seeds (its
-    wrapper checks ranges on the card), held bit-equal to its wrapper.
+    through its C entry, which takes the jobs' launch order), held
+    bit-equal to this tree's and timed in turns: parent, this tree, this
+    tree, parent;
+  * K1's wrapper at config 1's and config 2's seeds, held bit-equal to
+    its plain version, beside its wrapper call (CUDA events); with
+    ``--parent DIR`` DIR's K1 (its ``csrc/ungapped_xdrop.cu``, built
+    alone and launched through its C entry, the one without ranges),
+    held bit-equal too and timed in the same turns: parent, this tree,
+    this tree, parent.
 
 Run on the card:
     python -m gblastn_tpu_torch.tools.prof_launch [--parent DIR]
@@ -105,10 +108,51 @@ def longest_job(jobs, q_len, s_len, rows):
     return og.check_jobs(one, q_len, s_len, rows).to(jobs.m.device)
 
 
-def k1_launch(args):
-    """fn() launching K1 through its C entry on the current stream, and
-    its five outputs."""
-    fn = _build.load().gblastn_ungapped_xdrop
+def parent_sources(parent: Path) -> dict[str, Path]:
+    """The parent checkout's kernel sources that ``--parent`` builds:
+    {"k1": ungapped_xdrop.cu, "k2": gapped_band.cu}. FileNotFoundError
+    names a missing one before anything is built or launched."""
+    csrc = Path(parent) / "gblastn_tpu_torch" / "csrc"
+    out = {"k1": csrc / "ungapped_xdrop.cu", "k2": csrc / "gapped_band.cu"}
+    for path in out.values():
+        if not path.is_file():
+            raise FileNotFoundError(f"--parent: no {path}")
+    return out
+
+
+def replay_saved(k1_args, outs, ctx, seed_kw):
+    """The seeds that the host's one-hit diagonal replay saves
+    (engine/seeding.py::one_hit_diag_filter on K1's outputs, without the
+    approximate gate's demotions), as a numpy bool mask: K1's work on
+    the others buys no initial hit."""
+    from gblastn_tpu_torch.engine.seeding import (
+        diag_table_mask,
+        one_hit_diag_filter,
+    )
+
+    q, s, c, uq, us, ulen, usc = (t.cpu().numpy() for t in (
+        k1_args[3], k1_args[4], ctx, *outs[:4]))
+    starts = np.asarray(seed_kw["subject_starts"], np.int64)
+    oid = (np.searchsorted(starts, s, side="right") - 1).astype(np.int32)
+    base = starts[oid]
+    n_ctx = len(seed_kw["word_cutoffs"])
+    concat_qlen = int(seed_kw["context_offsets"][n_ctx]) - 2
+    return one_hit_diag_filter(
+        q.astype(np.int32), (s - base).astype(np.int32), oid,
+        seed_kw["word_size"], (us - base).astype(np.int32),
+        ulen.astype(np.int32), usc.astype(np.int32),
+        np.asarray(seed_kw["word_cutoffs"])[c].astype(np.int32),
+        diag_mask=diag_table_mask(concat_qlen, 0))
+
+
+def k1_parent_launch(lib, args):
+    """fn() launching the parent commit's K1 (a library from
+    ``_build.build_one``; its C entry takes no ranges) on the
+    current stream, and its five outputs."""
+    fn = lib.gblastn_ungapped_xdrop
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6)
     dev = args[0].device
     n = args[3].numel()
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(5)]
@@ -118,17 +162,43 @@ def k1_launch(args):
     def launch():
         rc = fn(*ptrs, n, *optrs, _raw_stream(dev))
         if rc != 0:
-            raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+            raise RuntimeError(f"parent K1 launch failed: CUDA error {rc}")
     return launch, outs
+
+
+def k1_turns(args, parent=None):
+    """One launch of K1 alone (ms, from a CUDA graph of 100) at ``args``:
+    this tree's wrapper ("this") and, when ``parent`` is its library, the
+    parent's kernel, in the turns parent, this, this, parent. Returns (ms
+    lists by name, bit-equal: every launch's outputs equal the plain
+    version's)."""
+    want = ung.ungapped_extend_window_ref(*args)
+    outs, launches = {}, {}
+    if parent is not None:
+        launches["parent"], outs["parent"] = k1_parent_launch(parent, args)
+    last = outs.setdefault("this", [])
+
+    def launch():
+        last[:] = ung.ungapped_extend_window(*args)
+    launches["this"] = launch
+    order = list(launches)
+    ms = {}
+    for who in order + order[::-1]:
+        counted = () if who == "parent" else (ung.ungapped_extend_window,)
+        ms.setdefault(who, []).append(
+            graph_ms(launches[who], counted=counted))
+    torch.cuda.synchronize()
+    same = all(_same(outs[w], want) for w in order)
+    return ms, same
 
 
 def k2_launch(lib, args, kw):
     """fn() launching the parent commit's K2 (a library from
-    ``_build.build_one``; its C entry has no launch order) on the current
-    stream, and its (score, flags)."""
+    ``_build.build_one``; its C entry takes the jobs' launch order, as
+    this tree's does) on the current stream, and its (score, flags)."""
     fn = lib.gblastn_gapped_band
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3)
     query, subject2, matrix16, jobs = args
     dev = query.device
@@ -136,7 +206,8 @@ def k2_launch(lib, args, kw):
     score = torch.empty(J, dtype=torch.int32, device=dev)
     flags = torch.empty(J, dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in (query, subject2, matrix16, jobs.a0,
-                                   jobs.b0, jobs.m, jobs.n, jobs.x)]
+                                   jobs.b0, jobs.m, jobs.n, jobs.x,
+                                   jobs.order)]
     ints = (J, jobs.n_right, kw["rows"], kw["gap_open"], kw["gap_extend"])
 
     def launch():
@@ -156,7 +227,8 @@ def main(argv=None) -> int:
         prog="python -m gblastn_tpu_torch.tools.prof_launch",
         description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout whose K2 to time beside this tree's")
+                    help="a checkout whose K1 and K2 to time beside this "
+                         "tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_launch: needs a CUDA card", file=sys.stderr)
@@ -176,31 +248,31 @@ def main(argv=None) -> int:
                 "alive": ((q, s2, mat, sets["alive"][0]), kw_pg),
                 "dead": ((q, s2, mat, sets["dead"][0]), kw_pg)}
 
-    for name, a in (("config1", k1_c1), ("config2", k1_c2)):
-        launch, outs = k1_launch(a)
-        launch()
-        same = _same(outs, ung.ungapped_extend_window(*a))
-        ok &= same
-        one = graph_ms(launch)
-        call = call_ms(lambda: ung.ungapped_extend_window(*a), 20, "cuda")
-        rec[f"k1_{name}"] = {"seeds": a[3].numel(), "ms_graph": one,
-                             "ms_call": call, "bit_equal": same}
-        print(f"k1 {name}: {a[3].numel()} seeds, one launch {one:.4f} ms, "
-              f"wrapper call {call:.4f} ms, bit-equal {same}  [{label}]",
-              flush=True)
-
-    parent = None
+    parent = parent_k2 = None
     if args.parent is not None:
-        parent = _build.build_one(
-            args.parent / "gblastn_tpu_torch" / "csrc" / "gapped_band.cu",
-            "gapped_band_parent")
+        src = parent_sources(args.parent)
+        parent = _build.build_one(src["k1"], "ungapped_xdrop_parent")
+        parent_k2 = _build.build_one(src["k2"], "gapped_band_parent")
+
+    for name, a in (("config1", k1_c1), ("config2", k1_c2)):
+        n = a[3].numel()
+        one, same = k1_turns(a, parent)
+        ok &= same
+        call = call_ms(lambda: ung.ungapped_extend_window(*a), 20, "cuda")
+        rec[f"k1_{name}"] = {"seeds": n, "ms_graph": one, "ms_call": call,
+                             "bit_equal": same}
+        print(f"k1 {name}: {n} seeds, one launch "
+              + ", ".join(f"{w} " + " / ".join(
+                  f"{t:.4f}" for t in v) for w, v in one.items())
+              + f" ms; wrapper call {call:.4f} ms; bit-equal {same}  "
+              f"[{label}]", flush=True)
 
     for name, (a, kw) in k2_cases.items():
         want = og.banded_gapped_scores(*a, **kw)
         launches = {"this": lambda: og.banded_gapped_scores(*a, **kw)}
         turns = ["this", "this"]
-        if parent is not None:
-            launch, out = k2_launch(parent, a, kw)
+        if parent_k2 is not None:
+            launch, out = k2_launch(parent_k2, a, kw)
             launch()
             same = _same(out, want)
             ok &= same

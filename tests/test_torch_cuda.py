@@ -21,11 +21,9 @@ from gblastn_tpu_torch.ops.ungapped import (
 )
 
 
-@pytest.mark.cuda
-def test_kernel_bit_equal_to_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dev = torch.device("cuda:0")
+def _k1_random(dev):
+    """K1's random set: planted matches, N, R and sentinels in the query,
+    whole-buffer budgets."""
     rng = np.random.default_rng(99)
     S, Q, n = 50000, 40000, 8192
     subject = rng.integers(0, 4, S).astype(np.int8)
@@ -46,18 +44,128 @@ def test_kernel_bit_equal_to_plain_version():
     def t(a, dt=i32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
-    args = (
+    return (
         pack_query(t(query, torch.uint8)), t(subject, torch.int8),
         t(make_table64(device_matrix16(1, -2))), t(q_off), t(s_off),
         t(rng.choice([16, 22], n)), t(max_l), t(max_r),
     )
-    before = ungapped_extend_window.launches
-    got = ungapped_extend_window(*args)
+
+
+def _k1_mixed(dev):
+    """K1's mixed set, every array a view at an odd offset into a larger
+    buffer: even seeds on a 1,600-base planted match (walks of ~1,500
+    steps), odd seeds at random (walks of a few steps) in the same
+    warps; a stretch of 1-base contexts (a sentinel every other byte);
+    x = 0 on every fifth seed, zero budgets on every seventh, and
+    budgets cut short on every eleventh."""
+    rng = np.random.default_rng(5)
+    S, Q, n = 60000, 50000, 4096
+    subject = rng.integers(0, 4, S).astype(np.int8)
+    query = rng.integers(0, 4, Q).astype(np.uint8)
+    qp0, sp0 = 10000, 30000
+    query[qp0: qp0 + 1600] = subject[sp0: sp0 + 1600]
+    query[30000:34000:2] = 15
+    q_off = rng.integers(0, Q, n)
+    s_off = rng.integers(0, S, n)
+    d = rng.integers(0, 1600, n // 2)
+    q_off[0::2] = qp0 + d
+    s_off[0::2] = sp0 + d
+    q_off[2::6] = rng.integers(30000, 34000, len(q_off[2::6]))
+    max_l = np.minimum(q_off, s_off)
+    max_r = np.minimum(Q - q_off, S - s_off)
+    max_l[::7] = 0
+    max_r[::7] = 0
+    max_l[3::11] //= 3
+    max_r[3::11] //= 5
+    x = rng.choice([16, 22, 30], n)
+    x[::5] = 0
+
+    def view(a, dt, off):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+        buf = torch.zeros(t.numel() + off, dtype=dt, device=dev)
+        buf[off:] = t
+        return buf[off:]
+
+    i32 = torch.int32
+    packed = pack_query(torch.from_numpy(query).to(dev)).cpu().numpy()
+    return (view(packed, torch.uint8, 3), view(subject, torch.int8, 7),
+            view(make_table64(device_matrix16(2, -3)), i32, 1),
+            view(q_off, i32, 1), view(s_off, i32, 3), view(x, i32, 1),
+            view(max_l, i32, 1), view(max_r, i32, 1))
+
+
+@pytest.mark.cuda
+def test_kernel_bit_equal_to_plain_version():
+    """K1 bit-equal to its plain version on the random set and on the
+    mixed set."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.ungapped import check_flags
+
+    dev = torch.device("cuda:0")
+    for args in (_k1_random(dev), _k1_mixed(dev)):
+        want = ungapped_extend_window_ref(*args)
+        before = ungapped_extend_window.launches
+        got = ungapped_extend_window(*args)
+        torch.cuda.synchronize()
+        assert ungapped_extend_window.launches == before + 1
+        check_flags(got[4])
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+    flags = want[4].cpu().numpy()
+    assert (flags & 2).any() and (flags & 4).any()
+    assert int(want[2].max()) > 1400            # the long walks
+
+
+@pytest.mark.cuda
+def test_kernel_in_a_cuda_graph_and_its_range_flags():
+    """K1's wrapper waits on nothing: a CUDA graph captures it (counted
+    in ``captured``, not ``launches``) and its replays equal the plain
+    version. A seed whose budget reaches outside the query, or whose
+    x_drop is past the kernel's limit, launches all the same and raises
+    at the fetch (check_flags); the other seeds keep their results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.ungapped import (
+        FLAG_RANGE,
+        X_LIMIT,
+        check_flags,
+    )
+
+    dev = torch.device("cuda:0")
+    args = _k1_mixed(dev)
     want = ungapped_extend_window_ref(*args)
+    ungapped_extend_window(*args)                       # warm-up
     torch.cuda.synchronize()
-    assert ungapped_extend_window.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.is_cuda and torch.equal(g, w)
+    launches = ungapped_extend_window.launches
+    captured = ungapped_extend_window.captured
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = ungapped_extend_window(*args)
+    assert ungapped_extend_window.captured == captured + 1
+    assert ungapped_extend_window.launches == launches
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    bad = list(args)
+    bad[6] = args[6].clone()
+    bad[6][5] = args[3][5] + 1                 # max_l > q_off
+    bad[7] = args[7].clone()
+    bad[7][9] = args[0].numel()                # past the query's end
+    bad[5] = args[5].clone()
+    bad[5][12] = X_LIMIT                       # x_drop past the kernel's
+    out = ungapped_extend_window(*bad)                  # no raise
+    f = out[4].cpu().numpy()
+    assert f[5] == f[9] == f[12] == FLAG_RANGE
+    assert int(out[2][5]) == 0 and int(out[0][5]) == int(args[3][5])
+    with pytest.raises(ValueError, match="outside"):
+        check_flags(out[4])
+    keep = torch.ones(len(f), dtype=torch.bool, device=dev)
+    keep[[5, 9, 12]] = False
+    for a, w in zip(out, want):
+        assert torch.equal(a[keep], w[keep])
 
 
 @pytest.mark.cuda

@@ -190,3 +190,112 @@ def test_scan_parts_records_give_the_kernels_entry(capsys):
     assert chip_smoke.gather_entry(recs, 7, sweep)["sweep_ms_graph"] == {
         "p3_staged_pv": {"rule": 7, "max": 7,
                          "ms": {"1": 0.03, "7": 0.009}}}
+
+
+def test_prof_launch_parent_sources(tmp_path):
+    """--parent names a checkout: its K1 and K2 sources, or a
+    FileNotFoundError that names the missing one before any build."""
+    csrc = tmp_path / "gblastn_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "gapped_band.cu").write_text("")
+    with pytest.raises(FileNotFoundError, match="ungapped_xdrop.cu"):
+        prof_launch.parent_sources(tmp_path)
+    (csrc / "ungapped_xdrop.cu").write_text("")
+    assert prof_launch.parent_sources(tmp_path) == {
+        "k1": csrc / "ungapped_xdrop.cu", "k2": csrc / "gapped_band.cu"}
+    assert set(prof_launch.parent_sources(REPO)) == {"k1", "k2"}
+
+
+def test_replay_share():
+    """On a small megablast batch on the CPU, replay_saved marks at least
+    the seeds that run_seeding keeps (it leaves out only the approximate
+    gate's demotions), and not every seed."""
+    import numpy as np
+
+    from gblastn_tpu_torch import FastaRecord, SequenceDB, megablast_options
+    from gblastn_tpu_torch.engine.search import setup_batch
+    from gblastn_tpu_torch.engine.seeding import run_seeding, ungapped_inputs
+    from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+    from gblastn_tpu_torch.tools.workloads import make_genome, sample_reads
+
+    rng = np.random.default_rng(3)
+    genome = make_genome(rng, 200_000)
+    pairs, _ = sample_reads(rng, genome, 40, 800, "r")
+    db = SequenceDB.from_records([FastaRecord("g", "", genome)], title="g")
+    b = setup_batch([FastaRecord(n, "", s) for n, s in pairs], db,
+                    megablast_options(evalue=1e-5, max_target_seqs=10),
+                    torch.device("cpu"))
+    kw = {k: b.seed_kw[k] for k in ("word_size", "lut_word", "scan_step",
+                                    "context_offsets", "x_dropoffs")}
+    ctx, args, _ = ungapped_inputs(b.seed_dev, **kw)
+    n = args[3].numel()
+    saved = prof_launch.replay_saved(args, ungapped_extend_window(*args),
+                                     ctx, b.seed_kw)
+    init = run_seeding(b.seed_dev, **b.seed_kw)
+    assert saved.shape == (n,)
+    assert len(init.q_off) <= int(saved.sum()) < n
+
+
+PTXAS_LOG = """== gapped_band.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118gapped_band_kernelEPKhPKaPKiPKxS8_S6_S6_S6_S6_iiiiiPiS9_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118gapped_band_kernelEPKhPKaPKiPKxS8_S6_S6_S6_S6_iiiiiPiS9_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 26496 bytes smem
+== ungapped_xdrop.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19k1_kernelEPKhPKaPKiS5_S5_S5_S5_S5_iiiNS_4OutsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19k1_kernelEPKhPKaPKiS5_S5_S5_S5_S5_iiiNS_4OutsE
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 4096 bytes smem
+"""
+
+
+def test_chip_smoke_k1_records():
+    """chip_smoke.py reads each kernel's registers and spills from
+    ptxas's report, and builds its kernels line's K1 entry, with every
+    key the line needs, from compare_k1's records."""
+    import chip_smoke
+
+    assert chip_smoke.ptxas_kernels(PTXAS_LOG) == [
+        ("gapped_band.cu", "gapped_band_kernel", 96, 0, 0),
+        ("ungapped_xdrop.cu", "k1_kernel", 30, 4, 8)]
+
+    def rec(ms):
+        return {"err": 0, "ms": ms, "plain_ms": 9.0, "bound_ms": 0.1,
+                "bound_by": "operations", "ms_graph": ms / 2}
+
+    entry = chip_smoke.k1_entry(rec(0.4), rec(0.1), rec(0.2), 3,
+                                {"config2_cli": 3}, {"k1_kernel": 30})
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in entry, key
+    assert (REPO / entry["source"]).is_file()
+    assert entry["ms_graph"] == 0.2 and entry["ms_graph_config1"] == 0.05
+    assert entry["ms_random"] == 0.2 and entry["registers"] == {
+        "k1_kernel": 30}
+    assert entry["launches"] == 3 and entry["max_abs_err"] == 0
+
+
+def test_build_keeps_its_log(tmp_path, monkeypatch):
+    """A current library is not rebuilt and its ptxas report is read back
+    from the log kept beside it, so chip_smoke.py finds K1's registers on
+    a second run too; a library without its log is rebuilt."""
+    import chip_smoke
+    from gblastn_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise RuntimeError("a build was started")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build_log", "")
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    lib = tmp_path / "libgblastn_torch_kernels.so"
+    lib.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="a build was started"):
+        _build.build()
+    lib.with_suffix(".log").write_text(PTXAS_LOG)
+    assert _build.build() == lib
+    assert _build.build_log == PTXAS_LOG
+    assert [k[1] for k in chip_smoke.ptxas_kernels(_build.build_log)
+            if k[0] == "ungapped_xdrop.cu"] == ["k1_kernel"]
