@@ -5,24 +5,32 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It
 builds the CUDA kernels from csrc/ (one nvcc per source, all started
-together; ptxas's registers and spills of each kernel, K1 without a
-spill), holds each against its plain PyTorch version on the card (K1 and
-K2 also replayed from a CUDA graph that captured the wrapper, which
-fails if the wrapper waits on the card), times K1 and K2 as one launch
-alone in a CUDA graph beside their wrapper calls, prints K1's modelled
-lockstep lane-steps against its walk steps and the share of the walk
-steps on seeds the one-hit replay saves (configs 1 and 2), and drives
-the port's paths end to end, each with every kernel's launch counter set
-to 0 just before it and read just after:
+together; ptxas's registers and spills of each kernel, K1, G and R
+without a spill), holds each against its plain PyTorch version on the
+card (K1, K2, G and R also replayed from a CUDA graph that captured the
+wrapper, which fails if the wrapper waits on the card), times K1, K2, G
+and R as one launch alone in a CUDA graph beside their wrapper calls,
+prints K1's modelled lockstep lane-steps against its walk steps and the
+share of the walk steps on seeds the one-hit replay saves (configs 1 and
+2), holds the device finish (G, the approximate-ungapped gate, and R,
+the one-hit diagonal replay) to its plain versions at configs 1 and 2
+and on its random sets (a long repeat, ambiguity codes and subject ends
+for G; a dense chain, identical seeds and the aliasing mask for R) and
+``run_seeding`` on the card to the host finish ``_finish_init_hits``
+(InitHits field by field, the bytes fetched beside the full fetch, the
+two finishes' times), and drives the port's paths end to end, each with
+every kernel's launch counter set to 0 just before it and read just
+after:
 
 1. megablast, config 1 of bench.py (500 x 1 kb reads against a 4.6 Mb
-   genome), through the CLI: K1; tabular bytes equal to the plain-PyTorch
-   run on the CPU;
+   genome), through the CLI: K1, G and R; tabular bytes equal to the
+   plain-PyTorch run on the CPU;
 2. one 500-read megablast batch against a 300 Mb genome held resident;
 3. blastn word 11, config 2 of bench.py (200 x 1.5 kb reads against the
    same 4.6 Mb genome), through search() with the device gapped filter
-   against the same search without it, and through the CLI: K1 and K2;
-   tabular bytes equal to the CPU run;
+   against the same search without it, and through the CLI: K1, K2, G
+   and R (no host gate or replay span on the path); tabular bytes equal
+   to the CPU run;
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
@@ -71,6 +79,10 @@ K2_SOURCE = "gblastn_tpu_torch/csrc/gapped_band.cu"
 K2_REPLACES = "gblastn_tpu/ops/pallas_gapped.py:83"
 GATHER_SOURCE = "gblastn_tpu_torch/csrc/table_gather.cu"
 GATHER_REPLACES = "tools/prof_scan_parts.py:164,183,203"
+G_SOURCE = "gblastn_tpu_torch/csrc/approx_gate.cu"
+G_REPLACES = "gblastn_tpu/ops/seeding.py:908"
+R_SOURCE = "gblastn_tpu_torch/csrc/diag_replay.cu"
+R_REPLACES = "gblastn_tpu/ops/seeding.py:1013"
 
 # The card's peak rates for the bounds (NVIDIA H100 SXM data sheet at
 # 700 W): 3.35 TB/s of HBM, and int32 outside the tensor cores at 64
@@ -84,6 +96,8 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 K1_OPS_PER_STEP = 9       # score 3, sum 1, drop test 2, best and its step 3
 K2_OPS_PER_CELL = 18      # diag 1, Ht 1, u 3, scan 1, E 3, H 1, thr 2,
                           # live 1, F 4, best 1; cells with j in [0, N]
+G_OPS_PER_STEP = 5        # XOR 1, sum 1, reset test 1, reset update 1,
+                          # drop test 1; byte-steps of the walks
 
 
 def check(cond, msg):
@@ -138,19 +152,18 @@ def ptxas_kernels(log):
     return out
 
 
-def compare_k1(args, label, card, reps, replay=None):
+def compare_k1(args, label, card, reps):
     """K1 against its plain version on the same CUDA tensors: bit-equal
     on all five outputs, with no seed flagged out of range, also when
     replayed from a CUDA graph that captured the wrapper's call (the
     capture fails if the wrapper waits on the card); one launch alone
     from that graph and a wrapper call timed back to back. Prints the
-    modelled lockstep lane-steps against the plain version's walk steps
-    and, with ``replay`` = (ctx, seed_kw), the share of the walk steps
-    that fall on seeds the one-hit replay saves. Returns a dict."""
+    modelled lockstep lane-steps against the plain version's walk steps.
+    Returns a dict, with the seeds (q_off, s_off) and the plain version's
+    walk steps for ``compare_finish``'s share of them on saved seeds."""
     import torch
 
     from gblastn_tpu_torch.ops import ungapped as ung
-    from gblastn_tpu_torch.tools.prof_launch import replay_saved
     from gblastn_tpu_torch.tools.timing import call_ms, graph_ms
 
     k1 = ung.ungapped_extend_window
@@ -177,19 +190,14 @@ def compare_k1(args, label, card, reps, replay=None):
     lanes = ung.lockstep_lane_steps(steps)
     # query, subject, table and 5 int32 per seed in; 5 int32 per seed out
     bound_ms, by = bound(nbytes(*args) + 20 * n, K1_OPS_PER_STEP * walk)
-    note = ""
-    if replay is not None:
-        saved = torch.from_numpy(replay_saved(args, want, *replay))
-        share = int(steps[:, saved.to(steps.device)].sum()) / walk
-        note = (f"; the replay saves {int(saved.sum())} seeds, which hold "
-                f"{100 * share:.1f}% of the walk steps")
     print(f"k1 {label}: n={n} seeds, {walk} walk steps, bit-equal (also "
           f"from a graph); one launch {ms_graph:.4f} ms, a call {ms:.4f} "
           f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); "
           f"lockstep lane-steps (model) {lanes} ({100 * walk / lanes:.0f}% "
-          f"busy){note}  [{card}]")
+          f"busy)  [{card}]")
     return {"err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "ms_graph": ms_graph}
+            "bound_ms": bound_ms, "bound_by": by, "ms_graph": ms_graph,
+            "seeds": (args[3], args[4]), "steps": steps}
 
 
 def compare_k2(args, kw, label, card, reps):
@@ -246,6 +254,203 @@ def compare_k2(args, kw, label, card, reps):
           f"call, {ms_graph:.4f} ms one launch, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({by})  [{card}]")
     return err, ms, plain_ms, bound_ms, by, ms_graph
+
+
+def _timed(fn, args, kw, counted, want, label, what, reps):
+    """fn(*args, **kw) bit-equal to ``want`` (a tuple of tensors), also
+    replayed from a CUDA graph that captured the wrapper (the capture
+    fails if it waits on the card); (max abs err, one launch alone in ms
+    from the graph, a call in ms)."""
+    import torch
+
+    from gblastn_tpu_torch.tools.timing import call_ms, graph_ms
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    got = tup(fn(*args, **kw))
+    torch.cuda.synchronize()
+    err = max((int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want)), default=0)
+    check(err == 0, f"{what} differs from its plain version on {label} "
+                    f"(max abs err {err})")
+    last = []
+
+    def launch():
+        last[:] = tup(fn(*args, **kw))
+    ms_graph = graph_ms(launch, counted=counted)
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, w) for o, w in zip(last, want)),
+          f"{what} replayed from a CUDA graph differs on {label}")
+    return err, ms_graph, call_ms(lambda: fn(*args, **kw), reps, "cuda")
+
+
+def compare_gate(args, kw, label, card, reps):
+    """G against its plain version on the same CUDA tensors (all five
+    outputs, no seed flagged out of range), one launch alone and a call
+    timed; the gated and demoted seeds and the byte-steps of their walks
+    (the plain version's count). Returns a dict."""
+    import torch
+
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.tools.timing import call_ms
+
+    *want, steps = rp.approx_gate_ref(*args, **kw, return_steps=True)
+    rp.check_gate_flags(want[4])
+    err, ms_graph, ms = _timed(rp.approx_gate, args, kw, (rp.approx_gate,),
+                               tuple(want), label, "G", reps)
+    plain_ms = call_ms(lambda: rp.approx_gate_ref(*args, **kw), 2, "cuda")
+    n = args[6].numel()
+    f = want[4]
+    need = int(((f & rp.FLAG_NEED) != 0).sum())
+    dem = int(((f & rp.FLAG_DEMOTE) != 0).sum())
+    walk = int(steps.sum())
+    longest = int(steps.max()) if n else 0
+    # tables and 8 int32 a seed in; 5 int32 a seed out
+    bound_ms, by = bound(nbytes(*args) + 20 * n, G_OPS_PER_STEP * walk)
+    print(f"G {label}: n={n} seeds, {need} gated, {dem} demoted, {walk} "
+          f"byte-steps (longest walk {longest}), bit-equal (also from a "
+          f"graph); one launch {ms_graph:.4f} ms, a call {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})  [{card}]")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "ms_graph": ms_graph,
+            "bound_ms": bound_ms, "bound_by": by, "need": need,
+            "demoted": dem, "byte_steps": walk}
+
+
+def compare_replay(args, kw, label, card, reps, keys=None):
+    """R against its plain version on the same CUDA tensors, one launch
+    alone and a call timed; the segments (runs of equal keys) and the
+    longest; with ``keys`` = (q_off, s_loc, oid, diag_mask) the two
+    ``torch.sort`` calls that order the seeds (``replay_keys``) timed
+    beside it. Returns a dict."""
+    import torch
+
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.tools.timing import call_ms
+
+    want = rp.diag_replay_ref(*args, **kw)
+    err, ms_graph, ms = _timed(rp.diag_replay, args, kw, (rp.diag_replay,),
+                               (want,), label, "R", reps)
+    plain_ms = call_ms(lambda: rp.diag_replay_ref(*args, **kw), 2, "cuda")
+    n = args[0].numel()
+    counts = torch.unique_consecutive(args[0], return_counts=True)[1]
+    # the long segments (32 seeds or more): their median seed count and
+    # median span in bases (a segment's s ascends)
+    ends = torch.cumsum(counts, 0)
+    s_sorted = args[2][args[1]].long()
+    long_ = counts >= 32
+    spans = s_sorted[ends[long_] - 1] - s_sorted[(ends - counts)[long_]]
+    long_note = (f"{int(long_.sum())} of 32 seeds or more (median "
+                 f"{int(counts[long_].median())} seeds over "
+                 f"{int(spans.median())} bases)" if long_.any() else
+                 "none of 32 seeds or more")
+    sort_ms = (call_ms(lambda: rp.replay_keys(*keys), reps, "cuda")
+               if keys is not None else None)
+    # sorted keys and order, 4 int32 a seed read; a byte a seed written
+    bound_ms, by = bound(nbytes(*args) + n, 0)
+    note = f", replay_keys (two torch.sort) {sort_ms:.4f} ms a call" \
+        if sort_ms is not None else ""
+    print(f"R {label}: n={n} seeds in {counts.numel()} segments (longest "
+          f"{int(counts.max()) if n else 0}; {long_note}), "
+          f"{int(want.sum())} saved, "
+          f"bit-equal (also from a graph); one launch {ms_graph:.4f} ms, a "
+          f"call {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+          f"ms ({by}){note}  [{card}]")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "ms_graph": ms_graph,
+            "bound_ms": bound_ms, "bound_by": by, "sort_ms": sort_ms,
+            "saved": int(want.sum()), "saved_mask": want}
+
+
+def compare_finish(batch, label, card, reps, k1=None):
+    """G and R at a batch's search-path inputs against their plain
+    versions (compare_gate, compare_replay), then ``run_seeding`` on the
+    card against the host finish ``_finish_init_hits`` over the full
+    fetch of K1's rows: InitHits equal field by field. Prints the saved
+    seeds, the gated ones, the bytes the device finish fetched and those
+    the parent's full fetch took, both finishes' times and, with ``k1``
+    (compare_k1's record for the same batch), the share of K1's walk
+    steps that fall on the seeds R saves. Returns (G record, R
+    record)."""
+    import torch
+
+    from gblastn_tpu_torch import slog
+    from gblastn_tpu_torch.engine.seeding import (
+        _finish_init_hits,
+        diag_table_mask,
+        run_seeding,
+    )
+    from gblastn_tpu_torch.tools.replay_sets import batch_cases
+
+    g_args, g_kw, r_args, r_kw = batch_cases(batch)
+    g = compare_gate(g_args, g_kw, label, card, reps)
+    r = compare_replay(r_args, r_kw, label, card, reps, keys=(
+        g_args[6], r_args[2], g_args[9],
+        diag_table_mask(g_kw["concat_end"] - 1, 0)))
+    kw, okw = batch.seed_kw, batch.oracle_kw
+    n_ctx = len(kw["x_dropoffs"])
+    n = g_args[6].numel()
+    run_seeding(batch.seed_dev, **kw)                 # warm-up
+    torch.cuda.synchronize()
+    slog.reset()
+    t0 = time.time()
+    got = run_seeding(batch.seed_dev, **kw)
+    t_dev = time.time() - t0
+    spans = dict(slog.totals)
+    fetched = int(slog.values["seeding.fetch_bytes"])
+    need = int(slog.values["seeding.gate_need"])
+    # the host finish on the full fetch of K1's rows (the parent's path)
+    rows = torch.stack([*g_args[6:9], *g_args[10:14]]).cpu().numpy()
+    t0 = time.time()
+    want = _finish_init_hits(
+        *rows, okw["word_cutoffs"], okw["subject_starts"], kw["word_size"],
+        concat_qlen=int(kw["context_offsets"][n_ctx]) - 2,
+        approx_ctx=okw["approx_ctx"])
+    t_host = time.time() - t0
+    for name in ("q_off", "s_off", "q_start", "s_start", "length", "score",
+                 "context", "oid"):
+        check(np.array_equal(getattr(got, name), getattr(want, name)),
+              f"run_seeding's {name} differs from the host finish on {label}")
+    check(need == g["need"], f"run_seeding gated {need} seeds, G {g['need']}")
+    note = ""
+    if k1 is not None:
+        check(all(torch.equal(a, b) for a, b in zip(k1["seeds"],
+                                                     g_args[6:8])),
+              f"K1's seeds differ between two scans of {label}")
+        saved = r["saved_mask"].to(k1["steps"].device).bool()
+        steps = k1["steps"]
+        share = int(steps[:, saved].sum()) / max(int(steps.sum()), 1)
+        note = (f"; the {int(saved.sum())} seeds R saves hold "
+                f"{100 * share:.1f}% of K1's walk steps")
+    print(f"init hits {label}: {len(got)} saved of {n} K1 seeds ({need} "
+          f"gated), equal field by field to the host finish; run_seeding "
+          f"{t_dev * 1e3:.1f} ms (pipeline "
+          f"{spans['device.seeding.pipeline'] * 1e3:.1f}, finish "
+          f"{spans['device.seeding.finish'] * 1e3:.1f}, fetch "
+          f"{spans['device.seeding.fetch'] * 1e3:.2f} ms), fetched {fetched} "
+          f"bytes (the full fetch of K1's rows: {32 * n}); the host finish "
+          f"on that fetch {t_host * 1e3:.1f} ms{note}  [{card}]")
+    return g, r
+
+
+def finish_entry(name, source, replaces, recs, launches, by_path,
+                 registers):
+    """The kernels line's approx_gate or diag_replay entry: config 2's
+    times and bound, config 1's and the random sets' beside them."""
+    c2 = recs["config2"]
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(r["err"] for r in recs.values()),
+             "ms": c2["ms"], "plain_ms": c2["plain_ms"],
+             "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
+             "library_ms": None, "ms_graph": c2["ms_graph"],
+             "registers": registers, "launches_by_path": by_path}
+    if c2.get("sort_ms") is not None:
+        entry["sort_ms"] = c2["sort_ms"]
+    for tag, r in recs.items():
+        if tag != "config2":
+            entry.update({f"{k}_{tag}": r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "ms_graph")})
+    return entry
 
 
 def k1_entry(c2, c1, rand, launches, by_path, registers):
@@ -467,12 +672,19 @@ def main() -> int:
     from gblastn_tpu_torch.ops import _build
     from gblastn_tpu_torch.ops import gapped as og
     from gblastn_tpu_torch.ops import gather as ogt
+    from gblastn_tpu_torch.ops import replay as rp
     from gblastn_tpu_torch.ops import ungapped as ung
-    from gblastn_tpu_torch.tools import prof_gapped, prof_scan_parts
+    from gblastn_tpu_torch.tools import (
+        prof_gapped,
+        prof_scan_parts,
+        replay_sets,
+    )
 
     k1 = ung.ungapped_extend_window
     k2 = og.banded_gapped_scores
     k3 = ogt.table_gather
+    kg = rp.approx_gate
+    kr = rp.diag_replay
 
     # 1. the card
     smi = subprocess.run(
@@ -495,11 +707,16 @@ def main() -> int:
     for src, fn, regs, st, ld in ptxas:
         print(f"ptxas: {src} {fn}: {regs} registers, spill stores {st} / "
               f"loads {ld} bytes")
-    k1_regs = {fn: regs for src, fn, regs, _st, _ld in ptxas
-               if src == Path(K1_SOURCE).name}
-    check(len(k1_regs) == 1, f"ptxas reported K1's kernels as {k1_regs}")
-    check(all(st == ld == 0 for src, _fn, _r, st, ld in ptxas
-              if src == Path(K1_SOURCE).name), "K1 spills registers")
+    regs = {}
+    for source, what in ((K1_SOURCE, "K1"), (G_SOURCE, "G"),
+                         (R_SOURCE, "R")):
+        name = Path(source).name
+        regs[what] = {fn: r for src, fn, r, _st, _ld in ptxas
+                      if src == name}
+        check(len(regs[what]) == 1,
+              f"ptxas reported {what}'s kernels as {regs[what]}")
+        check(all(st == ld == 0 for src, _fn, _r, st, ld in ptxas
+                  if src == name), f"{what} spills registers")
 
     # config-1 workload (bench.py's recipe and seed)
     rng = np.random.default_rng(SEED)
@@ -514,14 +731,13 @@ def main() -> int:
 
     # 3. K1 against its plain version on the card
     batch = setup_batch(reads, db, options, dev)
-    kw1 = {k: batch.seed_kw[k] for k in ("word_size", "lut_word",
-                                          "scan_step", "context_offsets",
-                                          "x_dropoffs")}
-    ctx1, k1_args, _n = ungapped_inputs(batch.seed_dev, **kw1)
-    k1_c1 = compare_k1(k1_args, "config-1 batch seeds", card, 50,
-                       replay=(ctx1, batch.seed_kw))
+    ctx1, k1_args, _n = ungapped_inputs(batch.seed_dev, **batch.seed_kw)
+    k1_c1 = compare_k1(k1_args, "config-1 batch seeds", card, 50)
     k1_rand = compare_k1(random_k1_args(dev),
                          "random seeds, N/R/Y, 12 subjects", card, 20)
+    # 3b. G and R at config 1's search-path inputs, and run_seeding
+    # against the host finish
+    g_c1, r_c1 = compare_finish(batch, "config-1 batch", card, 50, k1_c1)
     del batch, k1_args, ctx1
 
     # 4. K2 against its plain version on the card: random jobs of both
@@ -529,11 +745,24 @@ def main() -> int:
     k2_rand = [compare_k2(args, kw, label, card, 20)
                for label, args, kw in random_k2_cases(dev)]
 
+    # 4a. G and R against their plain versions on their random sets: the
+    # long repeat, ambiguity codes and subject ends; a dense chain,
+    # identical seeds and the aliasing mask
+    g_args, g_kw = replay_sets.random_gate_case(dev)
+    g_rand = compare_gate(g_args, g_kw, "random seeds, a long repeat, "
+                          "N/R/Y, subject ends", card, 20)
+    check(g_rand["demoted"] > 0, "G's random set demoted no seed")
+    r_rand = [compare_replay(a, kw, label, card, 20)
+              for label, a, kw in replay_sets.random_replay_cases(dev)]
+    del g_args
+
     # no fallback: a CUDA tensor must never reach a plain version on a
     # main path
     plain1 = ung.ungapped_extend_window_ref
     plain2 = og.banded_gapped_scores_ref
     plain3 = ogt.table_gather_ref
+    plain_g = rp.approx_gate_ref
+    plain_r = rp.diag_replay_ref
 
     def guarded1(*args, **kw):
         check(not any(a.is_cuda for a in args),
@@ -552,15 +781,26 @@ def main() -> int:
               "a CUDA tensor reached the plain table gather on a path")
         return plain3(tab, idx)
 
+    def guarded_g(*args, **kw):
+        check(not args[0].is_cuda,
+              "a CUDA tensor reached the plain G on the main path")
+        return plain_g(*args, **kw)
+
+    def guarded_r(*args, **kw):
+        check(not args[0].is_cuda,
+              "a CUDA tensor reached the plain R on the main path")
+        return plain_r(*args, **kw)
+
     def guard(on):
         ung.ungapped_extend_window_ref = guarded1 if on else plain1
         og.banded_gapped_scores_ref = guarded2 if on else plain2
         ogt.table_gather_ref = guarded3 if on else plain3
+        rp.approx_gate_ref = guarded_g if on else plain_g
+        rp.diag_replay_ref = guarded_r if on else plain_r
 
     def counts_zero():
-        k1.launches = 0
-        k2.launches = 0
-        k3.launches = 0
+        for fn in (k1, k2, k3, kg, kr):
+            fn.launches = 0
 
     # 4b. the path of P1-P3: the scan profiler in full, which holds the
     # table gather bit-equal to its plain version and tab[idx] at P1-P3's
@@ -617,8 +857,10 @@ def main() -> int:
     guard(True)
     counts_zero()
     t_cold = run_cli(blast, "cuda", work / "c1_cuda.tsv")
-    c1_launches = (k1.launches, k2.launches)
+    c1_launches = (k1.launches, k2.launches, kg.launches, kr.launches)
     check(c1_launches[0] > 0, "K1 was not launched on the config-1 path")
+    check(c1_launches[2] > 0 and c1_launches[3] > 0,
+          f"G / R were launched {c1_launches[2:]} times on config 1's path")
     slog.reset()
     t_warm = run_cli(blast, "cuda", work / "c1_cuda_warm.tsv")
     for ln in slog.report().splitlines()[1:]:
@@ -637,7 +879,8 @@ def main() -> int:
     check(not missing, f"reads missing their source locus: {missing[:5]}")
     n_lines = out_cuda.count(b"\n")
     print(f"config1 cli: {NUM_QUERIES} queries, {n_lines} tabular lines, "
-          f"launches K1 {c1_launches[0]} K2 {c1_launches[1]}; cuda cold "
+          f"launches K1 {c1_launches[0]} K2 {c1_launches[1]} G "
+          f"{c1_launches[2]} R {c1_launches[3]}; cuda cold "
           f"{t_cold:.2f} s, warm {t_warm:.2f} s = "
           f"{NUM_QUERIES / t_warm:.1f} q/s; cpu plain {t_cpu:.2f} s; "
           f"bytes equal, all {NUM_QUERIES} loci found  [{card}]")
@@ -651,14 +894,14 @@ def main() -> int:
     b_opts = blastn_options(evalue=1e-5, max_target_seqs=10)
     batch2 = setup_batch(reads2, db, b_opts, dev)
     check(batch2.seed_kw["word_size"] == 11, "config 2 is not word 11")
-    kw2 = {k: batch2.seed_kw[k] for k in kw1}
+    kw2 = batch2.seed_kw
     ctx2, k1_args2, n_raw2 = ungapped_inputs(batch2.seed_dev, **kw2)
     print(f"config2 seeding: lut word {kw2['lut_word']}, scan step "
           f"{kw2['scan_step']}, {n_raw2} raw seeds, "
           f"{k1_args2[3].numel()} K1 seeds")
-    k1_c2 = compare_k1(k1_args2, "config-2 batch seeds", card, 20,
-                       replay=(ctx2, batch2.seed_kw))
+    k1_c2 = compare_k1(k1_args2, "config-2 batch seeds", card, 20)
     del k1_args2, ctx2
+    g_c2, r_c2 = compare_finish(batch2, "config-2 batch", card, 20, k1_c2)
     init2 = run_seeding(batch2.seed_dev, **batch2.seed_kw)
     dgd = _build_gapped_filter(batch2)
     check(dgd is not None, "the gapped filter is off for config 2")
@@ -683,18 +926,22 @@ def main() -> int:
         torch.cuda.synchronize()
         t = time.time() - t
         os.environ.pop("GBLASTN_TPU_GAPPED_FILTER")
-        return (res, t, (k1.launches, k2.launches), dict(slog.totals),
+        return (res, t, (k1.launches, k2.launches, kg.launches,
+                         kr.launches), dict(slog.totals),
                 slog.diagnostics.device_gapped_rejects,
-                slog.diagnostics.gapped_extensions)
+                slog.diagnostics.gapped_extensions, dict(slog.values))
 
     guard(True)
     on = run_search("auto")
     off = run_search("0")
     guard(False)
-    res_on, t_on, s_launch, spans_on, rejects, ext_on = on
-    res_off, t_off, off_launch, spans_off, _r, ext_off = off
-    check(s_launch[0] >= 1 and s_launch[1] >= 1,
-          f"config-2 search launches K1/K2 {s_launch}")
+    res_on, t_on, s_launch, spans_on, rejects, ext_on, vals_on = on
+    res_off, t_off, off_launch, spans_off, _r, ext_off, _v = off
+    check(min(s_launch) >= 1,
+          f"config-2 search launches K1/K2/G/R {s_launch}")
+    check(not any(k.startswith("host.approx_gate")
+                  or k.startswith("host.diag_filter") for k in spans_on),
+          "the host gate or replay ran on the config-2 search path")
     check(off_launch[1] == 0, "K2 ran with the filter off")
     check(rejects > 0, "the gapped filter rejected no candidate")
     check(hsp_rows(res_on) == hsp_rows(res_off),
@@ -707,7 +954,10 @@ def main() -> int:
             found += 1
     check(found == C2_QUERIES,
           f"config 2: {C2_QUERIES - found} reads missed their locus")
-    print(f"config2 search: launches K1 {s_launch[0]} K2 {s_launch[1]}, "
+    print(f"config2 search: launches K1 {s_launch[0]} K2 {s_launch[1]} G "
+          f"{s_launch[2]} R {s_launch[3]}, {int(vals_on['seeding.gate_need'])}"
+          f" seeds gated, {int(vals_on['seeding.fetch_bytes'])} bytes "
+          f"fetched by the device finish; "
           f"{rejects} of {ext_on} candidates rejected on the device "
           f"({ext_off} host extensions without the filter); search "
           f"{t_on:.2f} s vs {t_off:.2f} s; host.prelim_gapped "
@@ -733,7 +983,7 @@ def main() -> int:
     counts_zero()
     slog.reset()
     t2_cold = run_cli(blast2, "cuda", work / "c2_cuda.tsv")
-    c2_launches = (k1.launches, k2.launches)
+    c2_launches = (k1.launches, k2.launches, kg.launches, kr.launches)
     c2_rejects = slog.diagnostics.device_gapped_rejects
     slog.reset()
     t2_warm = run_cli(blast2, "cuda", work / "c2_cuda_warm.tsv")
@@ -743,6 +993,8 @@ def main() -> int:
     check(c2_launches[0] >= 1, "K1 was not launched on the config-2 CLI")
     check(c2_launches[1] == n_batches,
           f"K2 ran {c2_launches[1]} times over {n_batches} CLI batches")
+    check(c2_launches[2] == c2_launches[3] == n_batches,
+          f"G / R ran {c2_launches[2:]} times over {n_batches} CLI batches")
     out2 = (work / "c2_cuda.tsv").read_bytes()
     check(out2 == (work / "c2_cuda_warm.tsv").read_bytes(),
           "two config-2 cuda runs disagree")
@@ -778,7 +1030,8 @@ def main() -> int:
     n_lines = out2.count(b"\n")
     print(f"config2 cli: {C2_QUERIES} queries in {n_batches} batches, "
           f"{n_lines} tabular lines, launches K1 {c2_launches[0]} K2 "
-          f"{c2_launches[1]}, {c2_rejects} rejects; cuda cold "
+          f"{c2_launches[1]} G {c2_launches[2]} R {c2_launches[3]}, "
+          f"{c2_rejects} rejects; cuda cold "
           f"{t2_cold:.2f} s, warm {t2_warm:.2f} s = "
           f"{C2_QUERIES / t2_warm:.1f} q/s; {cpu_note}; all "
           f"{C2_QUERIES} loci found  [{card}]")
@@ -822,10 +1075,13 @@ def main() -> int:
     paths = {"config1_cli": c1_launches, "config2_search": s_launch,
              "config2_cli": c2_launches}
     k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
+    g_recs = {"config2": g_c2, "config1": g_c1, "random": g_rand}
+    r_recs = {"config2": r_c2, "config1": r_c1,
+              **{f"random{i}": r for i, r in enumerate(r_rand)}}
     print(smi)
     print(json.dumps({"kernels": [
         k1_entry(k1_c2, k1_c1, k1_rand, c2_launches[0],
-                 {p: c[0] for p, c in paths.items()}, k1_regs),
+                 {p: c[0] for p, c in paths.items()}, regs["K1"]),
         {"name": "gapped_band", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": c2_launches[1],
          "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],
@@ -835,6 +1091,12 @@ def main() -> int:
          "launches_by_path": {**{p: c[1] for p, c in paths.items()},
                               "prof_gapped_parity": pg_launches[1]}},
         gather_entry(psp["gather"], psp_launches[2], psp["sweep"]),
+        finish_entry("approx_gate", G_SOURCE, G_REPLACES, g_recs,
+                     c2_launches[2], {p: c[2] for p, c in paths.items()},
+                     regs["G"]),
+        finish_entry("diag_replay", R_SOURCE, R_REPLACES, r_recs,
+                     c2_launches[3], {p: c[3] for p, c in paths.items()},
+                     regs["R"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,7 @@ from gblastn_tpu_torch.engine.gapped import (
 )
 from gblastn_tpu_torch.engine.resident import resident_from_reference
 from gblastn_tpu_torch.engine.seeding import SeedingDeviceData, run_seeding
+from gblastn_tpu_torch.ops.replay import query_bytes
 from gblastn_tpu_torch.ops.seeding import pack_query_nibbles
 from gblastn_tpu_torch.ops.ungapped import make_table64, pack_query
 
@@ -136,6 +137,10 @@ class BatchSetup:
     seed_dev: SeedingDeviceData
     seed_kw: dict           # run_seeding keywords
     query: torch.Tensor     # uint8[Q] query bytes on the device (K2 reads)
+    oracle_kw: dict         # the host oracle's own inputs: word_cutoffs,
+                            # subject_starts, approx_ctx (the keywords of
+                            # engine.seeding._finish_init_hits); no search
+                            # reads them
 
 
 def setup_batch(
@@ -244,21 +249,26 @@ def setup_batch(
     qbuf[: len(qblock.buffer)] = qblock.buffer
 
     # approximate-ungapped gate data (s_NuclUngappedExtend semantics):
-    # the replay demotes exact-passing seeds whose byte-quantized score
-    # misses the reduced cutoff, as the reference does for word >= 11
+    # the device finish (G) demotes exact-passing seeds whose
+    # byte-quantized score misses the reduced cutoff, as the reference
+    # does for word >= 11; approx_ctx is the same data for the host
+    # oracle (engine.seeding._finish_init_hits, in oracle_kw), which no
+    # search runs
     from gblastn_tpu_torch.params.derived import nucl_score_table_packed
 
+    reduced = np.array(
+        [params.contexts[c].reduced_nucl_cutoff for c in range(n_ctx)],
+        np.int64,
+    )
+    table256 = nucl_score_table_packed(options.reward, options.penalty)
     approx_ctx = {
         "query": qbuf,
         "concat_end": len(qblock.buffer) - 1,
         "packed": db.packed,
         "subject_ends": np.asarray(db.starts) + np.asarray(db.lengths),
         "x_dropoffs": x_dropoffs,
-        "reduced": np.array(
-            [params.contexts[c].reduced_nucl_cutoff
-             for c in range(n_ctx)], np.int64,
-        ),
-        "table": nucl_score_table_packed(options.reward, options.penalty),
+        "reduced": reduced,
+        "table": table256,
     }
 
     with slog.time("setup.subject_upload"):
@@ -276,18 +286,23 @@ def setup_batch(
             lut_offsets=torch.from_numpy(lut.counts_offsets).to(dev),
             lut_positions=torch.from_numpy(positions).to(dev),
             table64=torch.from_numpy(make_table64(m16)).to(dev),
+            qbytes=query_bytes(q_dev),
+            table256=torch.from_numpy(table256.astype(np.int32)).to(dev),
+            ctx_tables=torch.from_numpy(np.stack(
+                [word_cutoffs, reduced, x_dropoffs]).astype(np.int32)
+            ).to(dev),
         )
     seed_kw = dict(
         word_size=lut.word_size,
         lut_word=lut.lut_word_size,
         scan_step=lut.scan_step,
-        subject_starts=db.starts,
         context_offsets=ctx_offsets,
-        word_cutoffs=word_cutoffs,
         x_dropoffs=x_dropoffs,
-        approx_ctx=approx_ctx,
     )
-    return BatchSetup(qblock, params, masks, seed_dev, seed_kw, q_dev)
+    oracle_kw = dict(word_cutoffs=word_cutoffs, subject_starts=db.starts,
+                     approx_ctx=approx_ctx)
+    return BatchSetup(qblock, params, masks, seed_dev, seed_kw, q_dev,
+                      oracle_kw)
 
 
 def _build_gapped_filter(batch: BatchSetup) -> DeviceGappedData | None:

@@ -1,16 +1,22 @@
-"""Host orchestration of the device seeding stage (one-hit megablast).
+"""Host orchestration of the device seeding stage (one-hit seeding).
 
 The port's counterpart of ``gblastn_tpu/engine/seeding.py`` on the main
 path: scan + mini-extension on the device (ops.seeding), K1 on every
-mini-extension survivor (ops.ungapped), one device-to-host fetch, then the
-host one-hit diagonal replay with the approximate-ungapped gate,
-reproducing ``s_BlastnDiagTableExtendInitialHit`` (NCBI
-na_ungapped.c:612-755) for window_size == 0.
+mini-extension survivor (ops.ungapped), then the device finish
+(``_dev_replay_pack`` without its caps and fallbacks): the
+approximate-ungapped gate G and the one-hit diagonal replay R
+(ops.replay), reproducing ``s_BlastnDiagTableExtendInitialHit`` (NCBI
+na_ungapped.c:612-755) for window_size == 0, and one device-to-host fetch
+of the saved seeds only.
 
 Sizes are exact, so the JAX package's capacity buckets and retries have
 no counterpart here. K1 has no window and returns exact extensions, so
-there is no phase-0 clamp and no phase-2 escalation either; both were
-exact in the JAX package, so removing them changes no result.
+there is no phase-0 clamp and no phase-2 escalation either; G has no
+clamp, so every seed resolves and nothing falls back; R has no cap. All
+of these were exact in the JAX package, so removing them changes no
+result. ``_finish_init_hits`` is the host finish, kept as the oracle
+that the tests and chip_smoke.py hold the device finish to; no search
+runs through it.
 """
 from __future__ import annotations
 
@@ -21,8 +27,20 @@ import torch
 
 from gblastn_tpu_torch.utils.profiling import slog
 from gblastn_tpu_torch.engine.resident import ResidentDB
+from gblastn_tpu_torch.ops.replay import (
+    FLAG_NEED,
+    FLAG_RANGE as GATE_FLAG_RANGE,
+    approx_gate,
+    check_gate_flags,
+    diag_replay,
+    replay_keys,
+)
 from gblastn_tpu_torch.ops.seeding import seeding_scan_mini
-from gblastn_tpu_torch.ops.ungapped import check_flags, ungapped_extend_window
+from gblastn_tpu_torch.ops.ungapped import (
+    FLAG_RANGE,
+    check_flags,
+    ungapped_extend_window,
+)
 
 
 @dataclass
@@ -52,6 +70,10 @@ class SeedingDeviceData:
     lut_offsets: torch.Tensor    # int32[4^w + 1] CSR offsets
     lut_positions: torch.Tensor  # int32[P] CSR query offsets
     table64: torch.Tensor        # int32[72] K1 score table
+    qbytes: torch.Tensor         # uint8[Q-3] packed query bytes (G reads)
+    table256: torch.Tensor       # int32[256] G's packed XOR score table
+    ctx_tables: torch.Tensor     # int32[3, n_ctx] word cutoff, reduced
+                                 # cutoff, x_drop per context
 
 
 def sort_by_score_order(
@@ -232,37 +254,102 @@ def ungapped_inputs(
 
 def run_seeding(
     dev: SeedingDeviceData,
-    *,
-    subject_starts: np.ndarray,     # int64[num_subjects] base starts
-    word_cutoffs: np.ndarray,       # int32[n_ctx] per-context word cutoff
-    approx_ctx: dict | None = None,
     **scan_kw,                      # ungapped_inputs keywords
 ) -> InitHits:
-    """One-hit seeding pass over the resident database: scan + mini on
-    the device, K1 on every survivor, one fetch, host replay. A seed that
-    K1 flagged out of range raises ValueError at the fetch, before the
-    replay reads a row."""
+    """One-hit seeding pass over the resident database: scan + mini and
+    K1 on the device, the device finish (G, R), one fetch of the saved
+    seeds. A seed that K1 or G flagged out of range raises ValueError at
+    the fetch, before a row is used."""
     with slog.time("device.seeding.pipeline"):
         ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
-        uq, us, ulen, usc, flags = ungapped_extend_window(*k1_args)
-        # one device->host fetch of everything the host finish needs
-        rows = torch.stack([
-            k1_args[3], k1_args[4], ctx.to(torch.int32), uq, us, ulen, usc,
-            flags,
-        ]).cpu().numpy()
-    check_flags(rows[7])
-    rows = rows[:7]
+        ung = ungapped_extend_window(*k1_args)
+    n = int(k1_args[3].numel())
     slog.diagnostics.lookup_hits += n_raw
-    slog.diagnostics.init_extends += rows.shape[1]
-    if rows.shape[1] == 0:
+    slog.diagnostics.init_extends += n
+    if n == 0:
         z = np.zeros(0, dtype=np.int32)
         return InitHits(z, z, z, z, z, z, z, z)
-    n_ctx = len(word_cutoffs)
-    return _finish_init_hits(
-        *rows, word_cutoffs, subject_starts, scan_kw["word_size"],
-        concat_qlen=int(scan_kw["context_offsets"][n_ctx]) - 2,
-        approx_ctx=approx_ctx,
-    )
+    n_ctx = dev.ctx_tables.shape[1]
+    concat_end = int(scan_kw["context_offsets"][n_ctx]) - 1
+    word_size = scan_kw["word_size"]
+    with slog.time("device.seeding.finish"):
+        rows, head, keep = device_finish(
+            dev, k1_args, ctx, ung, word_size=word_size,
+            concat_end=concat_end)
+    with slog.time("device.seeding.fetch"):
+        out = torch.cat([head, rows[:, keep].reshape(-1)]).cpu().numpy()
+    slog.add_value("seeding.fetch_bytes", out.nbytes)
+    slog.add_value("seeding.gate_need", int(out[0]))
+    check_flags(out[1:2])
+    check_gate_flags(out[2:3])
+    q_np, s_np, c_np, uq, us, ulen, usc, oid = out[3:].reshape(8, -1)
+    order = sort_by_score_order(usc, us, ulen, uq)
+    return InitHits(q_off=q_np[order], s_off=s_np[order],
+                    q_start=uq[order], s_start=us[order],
+                    length=ulen[order], score=usc[order],
+                    context=c_np[order], oid=oid[order])
+
+
+def gate_inputs(dev: SeedingDeviceData, k1_args, ctx, ung) -> tuple:
+    """The arguments of ``approx_gate`` for K1's seeds and outputs
+    (``ung``), on their device: the packed query bytes, the resident
+    packed subject
+    and subject bounds, the batch's tables, then int32 q_off, s_off, ctx,
+    oid (by ``searchsorted`` over the subject starts) and K1's q_start,
+    s_start, length and score."""
+    res = dev.resident
+    ss = k1_args[4]
+    oid = torch.searchsorted(res.starts, ss.long(), right=True) - 1
+    return (dev.qbytes, res.packed, dev.table256, dev.ctx_tables,
+            res.starts, res.ends, k1_args[3], ss, ctx.to(torch.int32),
+            oid.to(torch.int32), *ung[:4])
+
+
+def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
+                  concat_end: int) -> tuple:
+    """The arguments of ``diag_replay`` (key, order, s_loc, end_loc,
+    score, cutoff) for the seeds of ``g_args`` (``gate_inputs``) and their
+    extension ``rows`` (q_start, s_start, length, score) after the gate:
+    subject-local coordinates, the keys sorted by ``replay_keys`` with the
+    diagonal mask of the batch's concatenated query length."""
+    qs, ss, ctx32, oid32 = g_args[6:10]
+    _uq, us, ulen, usc = rows
+    base = dev.resident.starts[oid32.long()]
+    s_loc = (ss - base).to(torch.int32)
+    end_loc = (us - base + ulen).to(torch.int32)
+    key, order = replay_keys(qs, s_loc, oid32,
+                             diag_table_mask(concat_end - 1, 0))
+    return (key, order, s_loc, end_loc, usc,
+            dev.ctx_tables[0][ctx32.long()])
+
+
+def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, *,
+                  word_size: int, concat_end: int):
+    """G and R over K1's outputs on the seeds' device. Returns (rows,
+    head, keep): int32[8, n] rows (q_off, s_off, ctx, q_start, s_start,
+    length, score, oid; the extension after G), an int32[3] head (gated
+    seeds, K1's and G's FLAG_RANGE if any seed carries it, else 0) and
+    the indices of the saved seeds in ascending order. ``keep`` comes from
+    ``torch.nonzero``, the one wait on the card; nothing before it
+    waits. G runs for word sizes of 11 and up, as the reference scores
+    approximately first only there."""
+    g_args = gate_inputs(dev, k1_args, ctx, ung)
+    rows = ung[:4]
+    n_need = torch.zeros((), dtype=torch.int32, device=ung[4].device)
+    head = [n_need, (ung[4] & FLAG_RANGE).amax()]
+    if word_size >= 11:
+        *rows, g_flags = approx_gate(*g_args, word_size=word_size,
+                                     concat_end=concat_end)
+        head[0] = (g_flags & FLAG_NEED).sum().to(torch.int32)
+        head.append((g_flags & GATE_FLAG_RANGE).amax())
+    else:
+        head.append(n_need)
+    saved = diag_replay(*replay_inputs(dev, g_args, rows,
+                                       concat_end=concat_end),
+                        word_size=word_size)
+    rows = torch.stack([*g_args[6:8], g_args[8], *rows, g_args[9]])
+    keep = torch.nonzero(saved).squeeze(1)
+    return rows, torch.stack(head), keep
 
 
 def _finish_init_hits(

@@ -140,6 +140,25 @@ def load():
         fn = lib.gblastn_table_gather_clusters   # its occupancy query
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn = lib.gblastn_approx_gate             # G
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6        # qbytes, packed, table256,
+                                         # ctx_tables, sub_starts, sub_ends
+            + [ctypes.c_void_p] * 8      # q_off .. ug_score
+            + [ctypes.c_int] * 7         # QB, P, n_ctx, n_sub, n, word,
+                                         # concat_end
+            + [ctypes.c_void_p] * 5      # five outputs
+            + [ctypes.c_void_p]          # stream
+        )
+        fn = lib.gblastn_diag_replay             # R
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6        # key, order, s_loc, end_loc,
+                                         # score, cutoff
+            + [ctypes.c_int] * 2         # n, word
+            + [ctypes.c_void_p] * 2      # saved, stream
+        )
         _lib = lib
     return _lib
 

@@ -1,0 +1,385 @@
+"""The device finish of one-hit seeding: the approximate-ungapped gate (G)
+and the per-diagonal one-hit replay (R), wrappers and plain versions.
+
+The port's counterpart of ``approx_gate_device`` and
+``diag_replay_device`` (``window == 0``) in ``gblastn_tpu/ops/seeding.py``.
+The kernels are ``csrc/approx_gate.cu`` and ``csrc/diag_replay.cu``;
+``approx_gate_ref`` and ``diag_replay_ref`` are their plain PyTorch
+versions with the same semantics. Each wrapper dispatches on where the
+tensors live: CPU tensors go to the plain version, CUDA tensors to the
+kernel (or an exception). There is no fallback between the two.
+
+G (s_NuclUngappedExtend, NCBI na_ungapped.c:263; host twin
+``engine/approx.py::approx_ungapped_one``, unclamped): for every seed
+whose exact K1 score meets its context's word cutoff, the reference's
+approximate two-way walk, four bases a step off the packed subject
+through the 256-entry XOR table, the running sum reset into the score
+whenever it turns positive, stopping when it falls below -x_drop. A
+seed whose approximate score misses the reduced cutoff is demoted: its
+rows become the approximate extension, as ``_finish_init_hits`` writes
+them. Every seed resolves: there is no clamp and no fallback.
+
+R (``engine/seeding.py::one_hit_diag_filter``; NCBI
+s_BlastnDiagTableExtendInitialHit, na_ungapped.c:612-755, window 0):
+seeds ordered by (oid, masked diagonal, s, q, index); per (oid, masked
+diagonal) a seed starting before ``last_hit`` is skipped, a seed scoring
+at least its cutoff is saved and moves ``last_hit`` to the end of its
+extension, any other moves it to ``s + word``.
+
+The kernels check their inputs per seed, so a launch waits on nothing: G
+marks a seed whose walk would read outside the query or the packed
+subject, or whose context or subject index is out of range, with
+FLAG_RANGE (no walk; the exact rows stay); ``check_gate_flags`` raises
+ValueError where the caller fetches the flags. R's inputs are the sort's
+own, so it has nothing to check.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+FLAG_NEED = 1      # G: the exact score met the cutoff; the walk ran
+FLAG_DEMOTE = 2    # G: the approximate score missed the reduced cutoff
+FLAG_RANGE = 8     # G: a read outside query or subject, or a bad index
+GATE_ERROR = ("an approximate-gate walk reaches outside query or "
+              "subject, or a seed's context or subject is out of range")
+_CHUNK = 64        # plain gate: byte-steps scored per loop iteration
+
+
+def check_gate_flags(flags) -> None:
+    """ValueError if G marked a seed out of range (FLAG_RANGE). ``flags``
+    is G's flags output or a numpy copy of it (a CUDA tensor is fetched,
+    which waits on the card)."""
+    f = flags.cpu().numpy() if isinstance(flags, torch.Tensor) else flags
+    if (np.asarray(f) & FLAG_RANGE).any():
+        raise ValueError(GATE_ERROR)
+
+
+def query_bytes(query: torch.Tensor) -> torch.Tensor:
+    """uint8[Q-3]: the truncated packing of the four query codes from
+    each buffer position, ``((q0<<6)|(q1<<4)|(q2<<2)|q3) & 0xFF``;
+    ambiguity codes (14, 15) bleed into the neighbouring slots, as in
+    the reference's C. G reads one of these a byte-step; a batch builds
+    them once (``engine/search.py::setup_batch``)."""
+    q = query.long()
+    if q.numel() < 4:
+        return torch.zeros(0, dtype=torch.uint8, device=query.device)
+    return (((q[:-3] << 6) | (q[1:-2] << 4) | (q[2:-1] << 2) | q[3:])
+            & 0xFF).to(torch.uint8)
+
+
+def _reset_walk_ref(qbytes, packed, table, q0, qstep, s0, sstep, n_steps,
+                    x):
+    """(best, pos, steps) of one direction of the approximate walk for
+    every seed, in int64: step j (1-based) scores table[qbytes[q0 +
+    qstep*j] ^ packed[s0 + sstep*j]]; the running sum resets into best
+    when it turns positive (pos = that step); the walk ends after the
+    step that leaves it below -x, or after n_steps steps. ``steps``
+    counts the steps taken. _CHUNK steps a loop iteration, over the live
+    seeds only."""
+    n = q0.numel()
+    dev = q0.device
+    best = torch.zeros(n, dtype=torch.int64, device=dev)
+    pos = torch.zeros_like(best)
+    steps = torch.zeros_like(best)
+    run = torch.zeros_like(best)      # the prefix total so far
+    act = torch.arange(n, device=dev)
+    j = torch.arange(1, _CHUNK + 1, device=dev)
+    col = j - 1
+    nq, ns = max(qbytes.numel() - 1, 0), max(packed.numel() - 1, 0)
+    qa, sa, na, xa = q0, s0, n_steps, x
+    act = act[na > 0]
+    qa, sa, na, xa = (t[na > 0] for t in (qa, sa, na, xa))
+    base = 0
+    while act.numel():
+        jj = base + j
+        qi = (qa[:, None] + qstep * jj).clamp_(0, nq)
+        si = (sa[:, None] + sstep * jj).clamp_(0, ns)
+        valid = jj[None, :] <= na[:, None]
+        sc = table[qbytes[qi] ^ packed[si].long()].masked_fill_(~valid, 0)
+        cs = torch.cumsum(sc, dim=1).add_(run[act, None])
+        b0 = best[act]
+        prev = torch.cat([b0[:, None], torch.maximum(
+            b0[:, None], torch.cummax(cs, dim=1).values[:, :-1])], dim=1)
+        up = cs > prev
+        # the sum after the step: 0 where it turned positive
+        after = torch.where(up, 0, cs - prev)
+        dropped = (after < -xa[:, None]) & valid
+        any_d = dropped.any(dim=1)
+        first = torch.where(any_d, torch.argmax(dropped.to(torch.int32),
+                                                dim=1), _CHUNK)
+        # the dropping step is taken (a reset there counts)
+        imp = up & valid & (col[None, :] <= first[:, None])
+        has = imp.any(dim=1)
+        last = _CHUNK - 1 - torch.argmax(imp.flip(1).to(torch.int32), dim=1)
+        best[act] = torch.where(has, cs.gather(1, last[:, None])[:, 0], b0)
+        pos[act] = torch.where(has, base + last + 1, pos[act])
+        taken = torch.where(any_d, first + 1,
+                            (na - base).clamp(0, _CHUNK))
+        steps[act] += taken
+        run[act] = cs[:, -1]
+        keep = ~any_d & (na > base + _CHUNK)
+        act, qa, sa, na, xa = (t[keep] for t in (act, qa, sa, na, xa))
+        base += _CHUNK
+    return best, pos, steps
+
+
+def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
+                    sub_ends, q_off, s_off, ctx, oid, ug_q, ug_s, ug_len,
+                    ug_score, *, word_size: int, concat_end: int,
+                    return_steps: bool = False):
+    """Plain PyTorch version of G (same arguments and results as
+    ``approx_gate``). With ``return_steps`` it also returns the byte-steps
+    each seed's walks took (int64[n], left + right): the work count
+    behind G's bound."""
+    dev = q_off.device
+    i64 = torch.int64
+    n_ctx = ctx_tables.shape[1]
+    n_sub = sub_starts.numel()
+    c, o = ctx.long(), oid.long()
+    ctx_ok = (c >= 0) & (c < n_ctx)
+    cc = c.clamp(0, max(n_ctx - 1, 0))
+    cut, red, xd = (ctx_tables[k].long()[cc] for k in range(3))
+    sc0 = ug_score.long()
+    need = ctx_ok & (sc0 >= cut)
+    oc = o.clamp(0, max(n_sub - 1, 0))
+    st, en = sub_starts.long()[oc], sub_ends.long()[oc]
+    q, s = q_off.long(), s_off.long()
+    s_loc = s - st
+    adj = (4 - (s_loc & 3)) & 3
+    q_ext = q - 1 + adj
+    s_ext = s_loc + adj
+    qb = q_ext + 1
+    sb = (st >> 2) + (s_ext >> 2)
+    n_left = torch.minimum(q_ext, s_ext) >> 2
+    n_right = torch.minimum(concat_end - 1 - q_ext, (en - st) - s_ext) >> 2
+    # the query length behind the packed bytes: a step at buffer position
+    # p reads the codes p .. p + 3
+    Q, P = qbytes.numel() + 3, packed.numel()
+    left_ok = (n_left <= 0) | ((qb - 4 * n_left >= 0) & (qb <= Q)
+                               & (sb - n_left >= 0) & (sb <= P))
+    right_ok = (n_right <= 0) | ((qb >= 0) & (qb + 4 * n_right <= Q)
+                                 & (sb >= 0) & (sb + n_right <= P))
+    in_range = (o >= 0) & (o < n_sub) & left_ok & right_ok
+    flags = torch.where(need, FLAG_NEED, 0)
+    flags = torch.where(~ctx_ok | (need & ~in_range), flags | FLAG_RANGE,
+                        flags)
+    walk = torch.nonzero(need & in_range).squeeze(1)
+    qbytes = qbytes.long()
+    table = table256.long()
+    pk = packed.long() if packed.numel() else packed.new_zeros(1).long()
+    w = (qb[walk], sb[walk], xd[walk])
+    l_best, l_pos, l_steps = _reset_walk_ref(
+        qbytes, pk, table, w[0], -4, w[1], -1, n_left[walk], w[2])
+    r_best, r_pos, r_steps = _reset_walk_ref(
+        qbytes, pk, table, w[0] - 4, 4, w[1] - 1, 1, n_right[walk], w[2])
+    a_score = l_best + r_best
+    dem = a_score < red[walk]
+    qe, se = q_ext[walk], s_ext[walk]
+    a_q = qe - 4 * l_pos + 1
+    a_s = se - 4 * l_pos + st[walk]
+    a_r = torch.where(r_pos > 0, qe + 4 * r_pos - 1, qe) + 1
+    a_len = torch.maximum(s[walk] + word_size - a_s, a_r - a_q + 1)
+    outs = [t.to(i64).clone() for t in (ug_q, ug_s, ug_len, ug_score)]
+    d = walk[dem]
+    for out, a in zip(outs, (a_q, a_s, a_len, a_score)):
+        out[d] = a[dem]
+    flags[d] |= FLAG_DEMOTE
+    outs = tuple(t.to(torch.int32) for t in (*outs, flags))
+    if return_steps:
+        steps = torch.zeros(q_off.numel(), dtype=i64, device=dev)
+        steps[walk] = l_steps + r_steps
+        return outs + (steps,)
+    return outs
+
+
+def replay_keys(q_off, s_loc, oid, diag_mask: int):
+    """(key, order): the seeds' primary keys (oid << 32 | masked diagonal +
+    2^31, int64) in replay order, and that order as indices (int64). Two
+    stable sorts, the secondary key (s_loc << 32 | q) first, so ties fall
+    back to (s, q) and then to the seed's index, as the host's stable
+    ``np.lexsort((q, s, diag, oid))`` orders them. ``s_loc`` is
+    subject-local, so every value fits its 32 bits (the resident bound)."""
+    q = q_off.long()
+    s = s_loc.long()
+    diag = s - q
+    if diag_mask:
+        diag = diag & diag_mask
+    key = (oid.long() << 32) | (diag + (1 << 31))
+    o1 = torch.sort((s << 32) | q, stable=True).indices
+    key, o2 = torch.sort(key[o1], stable=True)
+    return key, o1[o2]
+
+
+def diag_replay_ref(key, order, s_loc, end_loc, score, cutoff, *,
+                    word_size: int):
+    """Plain PyTorch version of R (same arguments and result as
+    ``diag_replay``), by state jumping: every segment (a run of equal
+    keys) holds its current seed, which the machine processes (it is
+    never skipped); the next one is the first later seed of the segment
+    with s >= last_hit, found for all segments at once by one
+    ``searchsorted`` over (segment, s), which ascends."""
+    n = key.numel()
+    dev = key.device
+    saved_sorted = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n:
+        s = s_loc.long()[order]
+        passed = score[order] >= cutoff[order]
+        nxt_last = torch.where(passed, end_loc.long()[order],
+                               s + word_size)
+        head = torch.ones(n, dtype=torch.bool, device=dev)
+        head[1:] = key[1:] != key[:-1]
+        seg = torch.cumsum(head, 0) - 1
+        comb = (seg << 32) + s
+        cur = torch.nonzero(head).squeeze(1)
+        ends = torch.cat([cur[1:], cur.new_full((1,), n)])
+        while cur.numel():
+            p = passed[cur]
+            saved_sorted[cur[p]] = True
+            nxt = torch.searchsorted(comb, (seg[cur] << 32) + nxt_last[cur])
+            nxt = torch.maximum(nxt, cur + 1)
+            alive = nxt < ends
+            cur, ends = nxt[alive], ends[alive]
+    saved = torch.zeros(n, dtype=torch.uint8, device=dev)
+    saved[order] = saved_sorted.to(torch.uint8)
+    return saved
+
+
+def _check_args(name, dev, specs):
+    for arg, t, dt in specs:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous {dt} on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+
+
+_lib_fns = None
+
+
+def _bind():
+    """The kernels' entry points and PyTorch's raw-stream and capture
+    queries, bound once."""
+    global _lib_fns
+    if _lib_fns is None:
+        from gblastn_tpu_torch.ops import _build
+
+        lib = _build.load()
+        _lib_fns = (lib.gblastn_approx_gate, lib.gblastn_diag_replay,
+                    torch._C._cuda_getCurrentRawStream,
+                    torch._C._cuda_isCurrentStreamCapturing)
+    return _lib_fns
+
+
+def _launch(fn, dev, args, what):
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev.index):
+            rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
+                q_off, s_off, ctx, oid, ug_q, ug_s, ug_len, ug_score, *,
+                word_size: int, concat_end: int):
+    """G: the approximate-ungapped gate on every seed of K1's output.
+
+    qbytes uint8[Q-3] (``query_bytes`` of the BLASTNA query buffer),
+    packed uint8[S/4] (the
+    resident 2-bit subject, pad-aligned), table256 int32[256]
+    (``nucl_score_table_packed``), ctx_tables int32[3, n_ctx] (word
+    cutoff, reduced cutoff, x_drop per context), sub_starts and sub_ends
+    int64[num_seqs], and int32[n] seeds: q_off (buffer), s_off (global),
+    ctx, oid, and K1's q_start, s_start, length, score. ``concat_end`` is
+    one past the query buffer's last real base. Returns int32[n]
+    (q_start, s_start, length, score, flags): the rows with the demoted
+    seeds' approximate extension substituted, and FLAG_NEED /
+    FLAG_DEMOTE / FLAG_RANGE. CPU tensors run the plain version; CUDA
+    tensors launch the kernel on the current stream without waiting on
+    the card. Launches count in ``approx_gate.launches`` (in
+    ``.captured`` while a graph captures)."""
+    seeds = (q_off, s_off, ctx, oid, ug_q, ug_s, ug_len, ug_score)
+    tables = (qbytes, packed, table256, ctx_tables, sub_starts, sub_ends)
+    if all(t.device.type == "cpu" for t in tables + seeds):
+        return approx_gate_ref(*tables, *seeds, word_size=word_size,
+                               concat_end=concat_end)
+    dev = q_off.device
+    if dev.type != "cuda":
+        raise ValueError(f"approx_gate: no kernel for {dev}")
+    n = q_off.numel()
+    _check_args("approx_gate", dev, [
+        ("qbytes", qbytes, torch.uint8), ("packed", packed, torch.uint8),
+        ("table256", table256, torch.int32),
+        ("ctx_tables", ctx_tables, torch.int32),
+        ("sub_starts", sub_starts, torch.int64),
+        ("sub_ends", sub_ends, torch.int64),
+    ] + [(f"seed array {k}", t, torch.int32) for k, t in enumerate(seeds)])
+    if (table256.numel() != 256 or ctx_tables.dim() != 2
+            or ctx_tables.shape[0] != 3 or sub_ends.numel()
+            != sub_starts.numel() or any(t.numel() != n for t in seeds)):
+        raise ValueError("approx_gate: table or seed array of the wrong "
+                         "shape")
+    if max(qbytes.numel() + 3, packed.numel(), n) >= 2**31:
+        raise ValueError("approx_gate: too long for 32-bit offsets")
+    outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
+    if n == 0:
+        return outs
+    fn, _r, raw_stream, capturing = _lib_fns or _bind()
+    args = (*(t.data_ptr() for t in tables), *(t.data_ptr() for t in seeds),
+            qbytes.numel(), packed.numel(), ctx_tables.shape[1],
+            sub_starts.numel(), n, word_size, concat_end,
+            *(o.data_ptr() for o in outs), raw_stream(dev.index))
+    _launch(fn, dev, args, "approx_gate")
+    if capturing():
+        approx_gate.captured += 1
+    else:
+        approx_gate.launches += 1
+    return outs
+
+
+approx_gate.launches = 0
+approx_gate.captured = 0
+
+
+def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
+                word_size: int):
+    """R: the one-hit replay over seeds in replay order.
+
+    key and order int64[n] from ``replay_keys``; int32[n] per seed (in
+    the original order): s_loc (subject-local seed start), end_loc (the
+    subject-local end of its ungapped extension, after G), score (after
+    G) and cutoff. Returns uint8[n] saved, in the original order. CPU
+    tensors run the plain version; CUDA tensors launch the kernel (a
+    segment a thread, at its head; long skips searched for) on the
+    current stream without waiting on the card. Launches count in ``diag_replay.launches`` (in
+    ``.captured`` while a graph captures)."""
+    tensors = (key, order, s_loc, end_loc, score, cutoff)
+    if all(t.device.type == "cpu" for t in tensors):
+        return diag_replay_ref(*tensors, word_size=word_size)
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError(f"diag_replay: no kernel for {dev}")
+    n = key.numel()
+    _check_args("diag_replay", dev, [
+        ("key", key, torch.int64), ("order", order, torch.int64),
+        ("s_loc", s_loc, torch.int32), ("end_loc", end_loc, torch.int32),
+        ("score", score, torch.int32), ("cutoff", cutoff, torch.int32)])
+    if any(t.numel() != n for t in tensors) or n >= 2**31:
+        raise ValueError("diag_replay: arrays of different lengths, or "
+                         "too many seeds for one launch")
+    saved = torch.zeros(n, dtype=torch.uint8, device=dev)   # R writes 1s
+    if n == 0:
+        return saved
+    _g, fn, raw_stream, capturing = _lib_fns or _bind()
+    args = (*(t.data_ptr() for t in tensors), n, word_size,
+            saved.data_ptr(), raw_stream(dev.index))
+    _launch(fn, dev, args, "diag_replay")
+    if capturing():
+        diag_replay.captured += 1
+    else:
+        diag_replay.launches += 1
+    return saved
+
+
+diag_replay.launches = 0
+diag_replay.captured = 0

@@ -3,7 +3,13 @@
 The port's counterpart of ``tools/prof_e2e.py``: one warm-up
 ``search()`` and then two timed ones, each on a fresh read set drawn
 with bench.py's recipe (``tools.workloads``), printing the wall time,
-queries per second and the ``slog`` stage report of each timed run.
+queries per second and the ``slog`` stage report of each timed run:
+among its spans the seeding stage's ``device.seeding.pipeline`` (scan,
+mini-extension and K1), ``device.seeding.finish`` (the gate G, the sorts
+and the replay R, up to the one wait on the card) and
+``device.seeding.fetch``, and among its values the bytes the finish
+fetched (``seeding.fetch_bytes``) and the seeds G gated
+(``seeding.gate_need``).
 
   config1  megablast, 500 x 1 kb reads against a 4.6 Mb genome
   config2  blastn word 11, 200 x 1.5 kb reads against the same genome

@@ -1,4 +1,4 @@
-"""K2 and K1 one launch alone, at the search path's shapes.
+"""K2, K1, G and R one launch alone, at the search path's shapes.
 
 Builds config 2's workload on the card (bench.py's genome and seed, 200 x
 1.5 kb reads of seed + 2, ``-task blastn``: the candidates' K2 jobs and
@@ -18,7 +18,12 @@ kernel from a CUDA graph of 100 (``tools.timing.graph_ms``):
     ``--parent DIR`` DIR's K1 (its ``csrc/ungapped_xdrop.cu``, built
     alone and launched through its C entry, the one without ranges),
     held bit-equal too and timed in the same turns: parent, this tree,
-    this tree, parent.
+    this tree, parent;
+  * the device finish's G and R (ops/replay.py) at config 1's and config
+    2's search-path inputs (``tools.replay_sets.batch_cases``), each held
+    bit-equal to its plain version and timed as one launch alone and as a
+    wrapper call, with the two ``torch.sort`` calls that order R's seeds
+    (``replay_keys``) timed beside them.
 
 Run on the card:
     python -m gblastn_tpu_torch.tools.prof_launch [--parent DIR]
@@ -49,7 +54,9 @@ def _raw_stream(dev):
 
 def search_shapes(dev):
     """(K1 args at config 1, K1 args at config 2, K2 (args, keywords) at
-    config 2's candidates): the inputs the search path gives the kernels."""
+    config 2's candidates, {"config1": ..., "config2": ...} of G's and
+    R's inputs (``tools.replay_sets.batch_cases``)): the inputs the search
+    path gives the kernels."""
     from gblastn_tpu_torch import (
         FastaRecord,
         SequenceDB,
@@ -76,18 +83,14 @@ def search_shapes(dev):
     pairs, _ = sample_reads(rng, genome, NUM_QUERIES, QUERY_LEN, "w0_")
     db = SequenceDB.from_records([FastaRecord("ecoli_synth", "", genome)],
                                  title="ecoli_synth")
-    keys = ("word_size", "lut_word", "scan_step", "context_offsets",
-            "x_dropoffs")
     b1 = setup_batch([FastaRecord(n, "", s) for n, s in pairs], db,
                      megablast_options(evalue=1e-5, max_target_seqs=10), dev)
-    k1_c1 = ungapped_inputs(b1.seed_dev, **{k: b1.seed_kw[k]
-                                            for k in keys})[1]
+    k1_c1 = ungapped_inputs(b1.seed_dev, **b1.seed_kw)[1]
     rng2 = np.random.default_rng(SEED + 2)
     pairs2, _ = sample_reads(rng2, genome, C2_QUERIES, C2_QUERY_LEN, "b")
     b2 = setup_batch([FastaRecord(n, "", s) for n, s in pairs2], db,
                      blastn_options(evalue=1e-5, max_target_seqs=10), dev)
-    k1_c2 = ungapped_inputs(b2.seed_dev, **{k: b2.seed_kw[k]
-                                            for k in keys})[1]
+    k1_c2 = ungapped_inputs(b2.seed_dev, **b2.seed_kw)[1]
     init = run_seeding(b2.seed_dev, **b2.seed_kw)
     dgd = _build_gapped_filter(b2)
     jobs = gapped_filter_jobs(init, b2.qblock, db.starts, db.lengths,
@@ -95,7 +98,47 @@ def search_shapes(dev):
     k2 = ((dgd.query, dgd.subject2, dgd.matrix16, jobs),
           dict(rows=dgd.rows, gap_open=dgd.gap_open,
                gap_extend=dgd.gap_extend))
-    return k1_c1, k1_c2, k2
+    from gblastn_tpu_torch.tools.replay_sets import batch_cases
+
+    return k1_c1, k1_c2, k2, {"config1": batch_cases(b1),
+                              "config2": batch_cases(b2)}
+
+
+def finish_times(cases, label):
+    """G and R at each case of ``search_shapes``' fourth item:
+    bit-equal to their plain versions, one launch alone (a CUDA graph of
+    100) and a wrapper call, and the two stable ``torch.sort`` calls of
+    ``replay_keys`` that order R's seeds (a call, CUDA events). Prints a
+    line a case and returns (records, all bit-equal)."""
+    from gblastn_tpu_torch.engine.seeding import diag_table_mask
+    from gblastn_tpu_torch.ops import replay as rp
+
+    rec, ok = {}, True
+    for name, (g_args, g_kw, r_args, r_kw) in cases.items():
+        g_want = rp.approx_gate_ref(*g_args, **g_kw)
+        r_want = rp.diag_replay_ref(*r_args, **r_kw)
+        g_same = _same(rp.approx_gate(*g_args, **g_kw), g_want)
+        r_same = torch.equal(rp.diag_replay(*r_args, **r_kw), r_want)
+        ok &= g_same and r_same
+        g_one = graph_ms(lambda: rp.approx_gate(*g_args, **g_kw),
+                         counted=(rp.approx_gate,))
+        r_one = graph_ms(lambda: rp.diag_replay(*r_args, **r_kw),
+                         counted=(rp.diag_replay,))
+        g_call = call_ms(lambda: rp.approx_gate(*g_args, **g_kw), 20, "cuda")
+        r_call = call_ms(lambda: rp.diag_replay(*r_args, **r_kw), 20, "cuda")
+        mask = diag_table_mask(g_kw["concat_end"] - 1, 0)
+        sort = call_ms(lambda: rp.replay_keys(g_args[6], r_args[2],
+                                              g_args[9], mask), 20, "cuda")
+        n = g_args[6].numel()
+        rec[name] = {"seeds": n, "gate_ms_graph": g_one,
+                     "gate_ms_call": g_call, "replay_ms_graph": r_one,
+                     "replay_ms_call": r_call, "sort_ms_call": sort,
+                     "bit_equal": bool(g_same and r_same)}
+        print(f"finish {name}: {n} seeds; G one launch {g_one:.4f} ms, a "
+              f"call {g_call:.4f}; R one launch {r_one:.4f} ms, a call "
+              f"{r_call:.4f}; replay_keys (two torch.sort) {sort:.4f} ms a "
+              f"call; bit-equal {g_same and r_same}  [{label}]", flush=True)
+    return rec, ok
 
 
 def longest_job(jobs, q_len, s_len, rows):
@@ -118,31 +161,6 @@ def parent_sources(parent: Path) -> dict[str, Path]:
         if not path.is_file():
             raise FileNotFoundError(f"--parent: no {path}")
     return out
-
-
-def replay_saved(k1_args, outs, ctx, seed_kw):
-    """The seeds that the host's one-hit diagonal replay saves
-    (engine/seeding.py::one_hit_diag_filter on K1's outputs, without the
-    approximate gate's demotions), as a numpy bool mask: K1's work on
-    the others buys no initial hit."""
-    from gblastn_tpu_torch.engine.seeding import (
-        diag_table_mask,
-        one_hit_diag_filter,
-    )
-
-    q, s, c, uq, us, ulen, usc = (t.cpu().numpy() for t in (
-        k1_args[3], k1_args[4], ctx, *outs[:4]))
-    starts = np.asarray(seed_kw["subject_starts"], np.int64)
-    oid = (np.searchsorted(starts, s, side="right") - 1).astype(np.int32)
-    base = starts[oid]
-    n_ctx = len(seed_kw["word_cutoffs"])
-    concat_qlen = int(seed_kw["context_offsets"][n_ctx]) - 2
-    return one_hit_diag_filter(
-        q.astype(np.int32), (s - base).astype(np.int32), oid,
-        seed_kw["word_size"], (us - base).astype(np.int32),
-        ulen.astype(np.int32), usc.astype(np.int32),
-        np.asarray(seed_kw["word_cutoffs"])[c].astype(np.int32),
-        diag_mask=diag_table_mask(concat_qlen, 0))
 
 
 def k1_parent_launch(lib, args):
@@ -239,7 +257,10 @@ def main(argv=None) -> int:
     rec = {"device": label}
     ok = True
 
-    k1_c1, k1_c2, (k2_args, k2_kw) = search_shapes(dev)
+    k1_c1, k1_c2, (k2_args, k2_kw), finish = search_shapes(dev)
+    fin, same = finish_times(finish, label)
+    rec["finish"] = fin
+    ok &= same
     q, s2, mat, kw_pg, sets = prof_gapped.workload(dev, n_sets=1)
     k2_cases = {"config2": (k2_args, k2_kw),
                 "config2_longest": (k2_args[:3] + (longest_job(

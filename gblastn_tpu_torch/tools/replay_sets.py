@@ -1,0 +1,164 @@
+"""Inputs of the device finish's kernels G and R (ops/replay.py) for the
+comparisons with their plain versions and for the profilers: the search
+path's own at a batch (``batch_cases``), and random sets that reach the
+cases the search path seldom does (``random_gate_case``,
+``random_replay_cases``). Each is built on the given device from a seeded
+numpy generator.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gblastn_tpu_torch.engine.seeding import (
+    diag_table_mask,
+    gate_inputs,
+    replay_inputs,
+    ungapped_inputs,
+)
+from gblastn_tpu_torch.io.fasta import FastaRecord
+from gblastn_tpu_torch.io.seqdb import SequenceDB
+from gblastn_tpu_torch.ops.replay import approx_gate, query_bytes, replay_keys
+from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+from gblastn_tpu_torch.params.derived import nucl_score_table_packed
+
+def batch_cases(batch):
+    """G's and R's inputs on a batch's search path (a ``BatchSetup``):
+    scan, mini-extension and K1 on its device, then (g_args, g_kw, r_args,
+    r_kw): ``approx_gate``'s arguments for K1's outputs, and
+    ``diag_replay``'s for the rows after the gate, as
+    ``engine.seeding.device_finish`` builds them."""
+    kw = batch.seed_kw
+    dev = batch.seed_dev
+    ctx, k1_args, _n = ungapped_inputs(dev, **kw)
+    ung = ungapped_extend_window(*k1_args)
+    n_ctx = len(kw["x_dropoffs"])
+    concat_end = int(kw["context_offsets"][n_ctx]) - 1
+    word = kw["word_size"]
+    g_args = gate_inputs(dev, k1_args, ctx, ung)
+    g_kw = dict(word_size=word, concat_end=concat_end)
+    rows = approx_gate(*g_args, **g_kw)[:4] if word >= 11 else ung[:4]
+    r_args = replay_inputs(dev, g_args, rows, concat_end=concat_end)
+    return g_args, g_kw, r_args, dict(word_size=word)
+
+
+def random_gate_case(device, n=65536, seed=4242):
+    """G's random set: six subjects, one of them a 4-base unit tiled 6,000
+    times; a query with planted matches, the same repeat (phase-matched to
+    the subject, so the walks run for hundreds of byte-steps: the long
+    repeat the JAX package's clamp left unresolved), N (14), R (4), Y (5)
+    and sentinels; seeds at random, on the plants, on the repeat and at
+    subject ends; two contexts (cutoff, reduced cutoff, x_drop). Returns
+    (args, kw) of ``approx_gate``."""
+    rng = np.random.default_rng(seed)
+    unit = rng.integers(0, 4, 4)
+    subs = [rng.integers(0, 4, int(rng.integers(5000, 60000)))
+            for _ in range(5)] + [np.tile(unit, 6000)]
+    db = SequenceDB.from_records(
+        [FastaRecord(f"s{i}", "", "".join("ACGT"[c] for c in x))
+         for i, x in enumerate(subs)], title="gate-random")
+    sub2 = db.unpacked()
+    starts = np.asarray(db.starts, np.int64)
+    ends = starts + np.asarray(db.lengths, np.int64)
+    Q = 1 << 16
+    query = rng.integers(0, 4, Q).astype(np.uint8)
+    plants = []
+    for _ in range(300):
+        o = int(rng.integers(0, 5))
+        L = int(rng.integers(60, 900))
+        sp = int(rng.integers(starts[o], ends[o] - L))
+        qp = int(rng.integers(8, Q - L - 8))
+        query[qp: qp + L] = sub2[sp: sp + L]
+        plants.append((qp, sp, L, o))
+    rq0, rlen = 20001, 8000        # the repeat: query[rq0] is unit[0]
+    query[rq0: rq0 + rlen] = np.tile(unit, rlen // 4 + 1)[:rlen]
+    query[rng.integers(1, Q - 1, 500)] = 14
+    query[rng.integers(1, Q - 1, 100)] = 4
+    query[rng.integers(1, Q - 1, 100)] = 5
+    query[::1021] = 15
+    query[0] = query[-1] = 15
+    oid = rng.integers(0, 6, n)
+    s = starts[oid] + (rng.random(n) * db.lengths[oid]).astype(np.int64)
+    q = rng.integers(1, Q - 2, n).astype(np.int64)
+    for k in range(0, n, 3):
+        qp, sp, L, o = plants[int(rng.integers(0, len(plants)))]
+        d = int(rng.integers(0, L))
+        q[k], s[k], oid[k] = qp + d, sp + d, o
+    rep = np.arange(1, n, 97)
+    d = 4 * rng.integers(500, 1500, len(rep))
+    q[rep] = rq0 + d               # in phase: q - rq0 = s_loc (mod 4)
+    s[rep] = starts[5] + 4 * rng.integers(1000, 5000, len(rep))
+    oid[rep] = 5
+    tail = np.arange(2, n, 89)
+    s[tail] = ends[oid[tail]] - rng.integers(1, 8, len(tail))
+    ctx = (rng.random(n) < 0.5).astype(np.int64)
+    ug_q = q - rng.integers(0, 30, n)
+    ug_s = s - (q - ug_q)
+    ug_len = (q - ug_q) + rng.integers(11, 300, n)
+    ug_score = rng.integers(10, 60, n)
+    ug_score[rep] = 100
+    tabs = np.array([[25, 30], [22, 10_000], [20, 16]], np.int32)
+
+    def t(a, dt=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    args = (query_bytes(t(query, torch.uint8)),
+            t(db.packed_padded(), torch.uint8),
+            t(nucl_score_table_packed(1, -2)), t(tabs),
+            t(starts, torch.int64), t(ends, torch.int64),
+            *(t(a) for a in (q, s, ctx, oid, ug_q, ug_s, ug_len, ug_score)))
+    return args, dict(word_size=11, concat_end=Q - 1)
+
+
+def _chains(rng, n, word, n_oid, chain_max, dense):
+    q = np.zeros(n, np.int64)
+    s = np.zeros(n, np.int64)
+    oid = np.zeros(n, np.int64)
+    i = 0
+    if dense:                      # one seed a base along one diagonal
+        m = min(dense, n)
+        s[:m] = 5000 + np.arange(m)
+        q[:m] = s[:m] - 4000
+        i = m
+    while i < n:
+        o = int(rng.integers(0, n_oid))
+        d = int(rng.integers(0, 300000))
+        pos = int(rng.integers(1, 500)) + d
+        for _ in range(min(int(rng.integers(1, chain_max)), n - i)):
+            q[i], s[i], oid[i] = pos - d, pos, o
+            i += 1
+            pos += int(rng.integers(1, 2 * word + 10))
+    return q, s, oid
+
+
+def random_replay_cases(device, n=262144, seed=777):
+    """R's random sets, [(label, args, kw)] of ``diag_replay``: chains of
+    seeds on shared diagonals spaced about a word apart (skips, saves and
+    failures), shuffled, with 2% identical seeds and ends at the seed; one
+    set with exact diagonals and a dense chain of 20,000 seeds (one a
+    base), one with the aliasing mask of a 4,000-base query
+    (``diag_table_mask``)."""
+    out = []
+    for label, word, mask, dense in (
+            ("random chains, dense chain, exact diagonals", 11, 0, 20000),
+            ("random chains, aliasing mask", 28,
+             diag_table_mask(4000, 0), 0)):
+        rng = np.random.default_rng(seed + word)
+        q, s, oid = _chains(rng, n, word, 4, 60, dense)
+        k = n // 50
+        src, dst = rng.integers(0, n, k), rng.integers(0, n, k)
+        q[dst], s[dst], oid[dst] = q[src], s[src], oid[src]
+        score = rng.integers(0, 44, n)
+        end = s - rng.integers(0, 10, n) + rng.integers(word, 60, n)
+        end[::17] = s[::17]
+        perm = rng.permutation(n)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a[perm])).to(
+                device, torch.int32)
+
+        qt, st, ot = t(q), t(s), t(oid)
+        key, order = replay_keys(qt, st, ot, mask)
+        out.append((label, (key, order, st, t(end), t(score),
+                            t(np.full(n, 22))), dict(word_size=word)))
+    return out

@@ -1,5 +1,5 @@
-"""K1, K2 and the table gather on the card against their plain versions,
-on the same CUDA tensors.
+"""K1, K2, the table gather, and the device finish's G and R on the card
+against their plain versions, on the same CUDA tensors.
 
 Needs a CUDA card (skips elsewhere). Imports no JAX, so it also runs on a
 machine without it:
@@ -384,3 +384,91 @@ def test_table_gather_counts_the_kernels_a_graph_runs():
     assert table_gather.captured == captured + 10
     # one warm-up call, then two replays of ten
     assert table_gather.launches == launches + 1 + 2 * 10
+
+
+@pytest.mark.cuda
+def test_gate_and_replay_bit_equal_to_plain_versions():
+    """G and R against their plain versions on their random sets (the
+    long repeat, ambiguity codes and subject ends for G; a dense chain,
+    identical seeds and the aliasing mask for R), also replayed from a
+    CUDA graph that captured each wrapper (counted in ``captured``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.replay import (
+        FLAG_DEMOTE,
+        approx_gate,
+        approx_gate_ref,
+        check_gate_flags,
+        diag_replay,
+        diag_replay_ref,
+    )
+    from gblastn_tpu_torch.tools.replay_sets import (
+        random_gate_case,
+        random_replay_cases,
+    )
+
+    dev = torch.device("cuda:0")
+    g_args, g_kw = random_gate_case(dev)
+    cases = [(approx_gate, approx_gate_ref, g_args, g_kw)] + [
+        (diag_replay, diag_replay_ref, a, kw)
+        for _label, a, kw in random_replay_cases(dev)]
+    for fn, ref, args, kw in cases:
+        want = ref(*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        before = fn.launches
+        got = fn(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+        captured, launches = fn.captured, fn.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*args, **kw)
+        assert fn.captured == captured + 1 and fn.launches == launches
+        out = out if isinstance(out, tuple) else (out,)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+    g_flags = approx_gate_ref(*g_args, **g_kw)[4].cpu().numpy()
+    check_gate_flags(g_flags)
+    assert (g_flags & FLAG_DEMOTE).any()
+
+
+@pytest.mark.cuda
+def test_gate_range_flag_raises():
+    """A seed whose approximate walk would read past the query buffer,
+    or whose subject index is out of range, launches all the same: it
+    carries FLAG_RANGE and K1's rows, the other seeds equal the plain
+    version, and check_gate_flags raises ValueError."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.replay import (
+        FLAG_RANGE,
+        approx_gate,
+        approx_gate_ref,
+        check_gate_flags,
+    )
+    from gblastn_tpu_torch.tools.replay_sets import random_gate_case
+
+    dev = torch.device("cuda:0")
+    args, kw = random_gate_case(dev, n=4096)
+    args = list(args)
+    args[9] = args[9].clone()
+    args[9][7] = 99                                 # no such subject
+    args[13] = torch.full_like(args[13], 100)       # every seed gated
+    kw = dict(kw, concat_end=kw["concat_end"] + 64)     # past the buffer
+    want = approx_gate_ref(*args, **kw)
+    got = approx_gate(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    f = got[4].cpu().numpy()
+    assert f[7] & FLAG_RANGE and (f & FLAG_RANGE).sum() > FLAG_RANGE
+    bad = torch.from_numpy((f & FLAG_RANGE) != 0).to(dev)
+    for g, k in zip(got[:4], args[10:14]):
+        assert torch.equal(g[bad], k[bad])
+    with pytest.raises(ValueError, match="outside"):
+        check_gate_flags(got[4])

@@ -206,34 +206,37 @@ def test_prof_launch_parent_sources(tmp_path):
     assert set(prof_launch.parent_sources(REPO)) == {"k1", "k2"}
 
 
-def test_replay_share():
-    """On a small megablast batch on the CPU, replay_saved marks at least
-    the seeds that run_seeding keeps (it leaves out only the approximate
-    gate's demotions), and not every seed."""
+def test_batch_cases_replay_saves_what_run_seeding_keeps():
+    """On a small blastn batch on the CPU, replay_sets.batch_cases gives
+    G and R the search path's inputs: the plain R over them saves exactly
+    the seeds that run_seeding returns, after the gate's demotions."""
     import numpy as np
 
-    from gblastn_tpu_torch import FastaRecord, SequenceDB, megablast_options
+    from gblastn_tpu_torch import FastaRecord, SequenceDB, blastn_options
     from gblastn_tpu_torch.engine.search import setup_batch
-    from gblastn_tpu_torch.engine.seeding import run_seeding, ungapped_inputs
-    from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+    from gblastn_tpu_torch.engine.seeding import run_seeding
+    from gblastn_tpu_torch.ops.replay import approx_gate, diag_replay_ref
+    from gblastn_tpu_torch.tools.replay_sets import batch_cases
     from gblastn_tpu_torch.tools.workloads import make_genome, sample_reads
 
     rng = np.random.default_rng(3)
-    genome = make_genome(rng, 200_000)
-    pairs, _ = sample_reads(rng, genome, 40, 800, "r")
+    genome = make_genome(rng, 60_000)
+    pairs, _ = sample_reads(rng, genome, 8, 600, "r")
     db = SequenceDB.from_records([FastaRecord("g", "", genome)], title="g")
     b = setup_batch([FastaRecord(n, "", s) for n, s in pairs], db,
-                    megablast_options(evalue=1e-5, max_target_seqs=10),
+                    blastn_options(evalue=1e-5, max_target_seqs=10),
                     torch.device("cpu"))
-    kw = {k: b.seed_kw[k] for k in ("word_size", "lut_word", "scan_step",
-                                    "context_offsets", "x_dropoffs")}
-    ctx, args, _ = ungapped_inputs(b.seed_dev, **kw)
-    n = args[3].numel()
-    saved = prof_launch.replay_saved(args, ungapped_extend_window(*args),
-                                     ctx, b.seed_kw)
+    g_args, g_kw, r_args, r_kw = batch_cases(b)
+    n = g_args[6].numel()
+    assert all(a.numel() == n for a in g_args[6:])
+    assert g_kw["word_size"] == r_kw["word_size"] == 11
+    saved = diag_replay_ref(*r_args, **r_kw).bool()
     init = run_seeding(b.seed_dev, **b.seed_kw)
-    assert saved.shape == (n,)
-    assert len(init.q_off) <= int(saved.sum()) < n
+    assert 0 < int(saved.sum()) == len(init) < n
+    rows = approx_gate(*g_args, **g_kw)
+    keep = torch.nonzero(saved).squeeze(1)
+    assert sorted(rows[3][keep].tolist()) == sorted(init.score.tolist())
+    assert sorted(g_args[6][keep].tolist()) == sorted(init.q_off.tolist())
 
 
 PTXAS_LOG = """== gapped_band.cu
