@@ -5,11 +5,12 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It
 builds the CUDA kernels from csrc/ (one nvcc per source, all started
-together; ptxas's registers and spills of each kernel, K1, G and R
+together; ptxas's registers and spills of each kernel, K1, G, R and RR
 without a spill), holds each against its plain PyTorch version on the
-card (K1, K2, G and R also replayed from a CUDA graph that captured the
-wrapper, which fails if the wrapper waits on the card), times K1, K2, G
-and R as one launch alone in a CUDA graph beside their wrapper calls,
+card (K1, K2, G, R and RR also replayed from a CUDA graph that captured
+the wrapper, which fails if the wrapper waits on the card), times K1, K2,
+G, R and RR as one launch alone in a CUDA graph beside their wrapper
+calls,
 prints K1's modelled lockstep lane-steps against its walk steps and the
 share of the walk steps on seeds the one-hit replay saves (configs 1 and
 2), holds the device finish (G, the approximate-ungapped gate, and R,
@@ -31,6 +32,16 @@ after:
    against the same search without it, and through the CLI: K1, K2, G
    and R (no host gate or replay span on the path); tabular bytes equal
    to the CPU run;
+3a. two-hit seeding at configs 1w (config 1 with -window_size 40: the
+   double-word probe RR runs), 2w (config 2 with -window_size 40) and 2d
+   (dc-megablast, bench.py's config 2d: 200 x 1.5 kb reads with
+   third-position wobble), each with RR (1w), G and the two-hit R held to
+   their plain versions (RR and the two-hit R also on their random sets)
+   and run_seeding to the host finish with the window; config 2d through
+   search(); configs 1w, 2w and 2d, a blastn-short and a vecscreen batch
+   through the CLI: launch counters of K1, K2, G, R and RR, tabular bytes
+   equal to the CPU run, reads that miss their locus counted (not a
+   failure);
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
@@ -60,18 +71,19 @@ import numpy as np
 
 from gblastn_tpu_torch.tools.workloads import (  # bench.py's recipe, sizes
     BIG_GENOME_LEN,
+    C2_QUERIES,
+    C2_QUERY_LEN,
     GENOME_LEN,
     NUM_QUERIES,
     QUERY_LEN,
     SEED,
+    config2d_reads,
     make_genome,
     sample_reads,
 )
 
 REPO = Path(__file__).resolve().parent
 BIG_BATCH = 500
-C2_QUERIES = 200
-C2_QUERY_LEN = 1500
 
 K1_SOURCE = "gblastn_tpu_torch/csrc/ungapped_xdrop.cu"
 K1_REPLACES = "gblastn_tpu/ops/pallas_ungapped.py:161"
@@ -83,6 +95,8 @@ G_SOURCE = "gblastn_tpu_torch/csrc/approx_gate.cu"
 G_REPLACES = "gblastn_tpu/ops/seeding.py:908"
 R_SOURCE = "gblastn_tpu_torch/csrc/diag_replay.cu"
 R_REPLACES = "gblastn_tpu/ops/seeding.py:1013"
+RR_SOURCE = "gblastn_tpu_torch/csrc/right_run.cu"
+RR_REPLACES = "gblastn_tpu/ops/seeding.py:729"
 
 # The card's peak rates for the bounds (NVIDIA H100 SXM data sheet at
 # 700 W): 3.35 TB/s of HBM, and int32 outside the tensor cores at 64
@@ -98,6 +112,9 @@ K2_OPS_PER_CELL = 18      # diag 1, Ht 1, u 3, scan 1, E 3, H 1, thr 2,
                           # live 1, F 4, best 1; cells with j in [0, N]
 G_OPS_PER_STEP = 5        # XOR 1, sum 1, reset test 1, reset update 1,
                           # drop test 1; byte-steps of the walks
+RR_OPS_PER_BASE = 6       # two extracts (shift, mask) 4, compare 1,
+                          # count 1; each base a run compares (its length,
+                          # and one more where it stops short of the word)
 
 
 def check(cond, msg):
@@ -331,6 +348,7 @@ def compare_replay(args, kw, label, card, reps, keys=None):
     want = rp.diag_replay_ref(*args, **kw)
     err, ms_graph, ms = _timed(rp.diag_replay, args, kw, (rp.diag_replay,),
                                (want,), label, "R", reps)
+    runs = kw.get("right_run") if kw.get("window") else None
     plain_ms = call_ms(lambda: rp.diag_replay_ref(*args, **kw), 2, "cuda")
     n = args[0].numel()
     counts = torch.unique_consecutive(args[0], return_counts=True)[1]
@@ -346,10 +364,15 @@ def compare_replay(args, kw, label, card, reps, keys=None):
                  "none of 32 seeds or more")
     sort_ms = (call_ms(lambda: rp.replay_keys(*keys), reps, "cuda")
                if keys is not None else None)
-    # sorted keys and order, 4 int32 a seed read; a byte a seed written
-    bound_ms, by = bound(nbytes(*args) + n, 0)
+    # sorted keys and order, 4 int32 a seed read (5 with two-hit's runs);
+    # a byte a seed written
+    bound_ms, by = bound(nbytes(*args) + n + (4 * n if runs is not None
+                                               else 0), 0)
     note = f", replay_keys (two torch.sort) {sort_ms:.4f} ms a call" \
         if sort_ms is not None else ""
+    if kw.get("window"):
+        note += (f"; two-hit, window {kw['window']}, runs "
+                 f"{'from RR' if runs is not None else '0 (rr_zero)'}")
     print(f"R {label}: n={n} seeds in {counts.numel()} segments (longest "
           f"{int(counts.max()) if n else 0}; {long_note}), "
           f"{int(want.sum())} saved, "
@@ -359,6 +382,68 @@ def compare_replay(args, kw, label, card, reps, keys=None):
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "ms_graph": ms_graph,
             "bound_ms": bound_ms, "bound_by": by, "sort_ms": sort_ms,
             "saved": int(want.sum()), "saved_mask": want}
+
+
+def rr_work(args, word, run):
+    """(bytes, compares): the work RR must do for the seeds of ``args``
+    (``right_run``'s) whose runs are ``run``. The compares are each base
+    a run compares: its length, and one more where it stops short of its
+    limit. The bytes are 16 a seed (q_off, s_off and oid read, the run
+    written), 8 for each owning subject's end a seed reads, and 8 for
+    each query or subject word that holds a base a run compares (from the
+    word end through the base that stops it short of its limit, as the
+    kernel loads them), each word counted once however many seeds share
+    it."""
+    import torch
+
+    query_nib, subject_w, sub_ends, q_off, s_off, oid = args
+    q, s, o = q_off.long() + word, s_off.long() + word, oid.long()
+    n_sub = sub_ends.numel()
+    ok = (o >= 0) & (o < n_sub)
+    hi = torch.where(ok, sub_ends.long()[o.clamp(0, max(n_sub - 1, 0))], 0)
+    lim = torch.minimum(torch.minimum(torch.full_like(q, word),
+                                      8 * query_nib.numel() - q),
+                        hi.clamp(max=16 * subject_w.numel()) - s)
+    lim = torch.where(ok & (q >= 0) & (s >= 0), lim, 0)
+    run = run.long()
+    short = run < lim
+    last = torch.where(short, run, run - 1)     # the last base compared
+    total = 16 * q_off.numel() + 8 * torch.unique(o[ok]).numel()
+    for pos, per in ((q, 8), (s, 16)):
+        w = (pos // per)[:, None] + torch.arange(-(-word // per) + 1,
+                                                 device=pos.device)
+        held = (lim > 0)[:, None] & (w <= ((pos + last) // per)[:, None])
+        total += 8 * torch.unique(w[held]).numel()
+    return total, int(run.sum()) + int(short.sum())
+
+
+def compare_run(args, kw, label, card, reps):
+    """RR against its plain version on the same CUDA tensors (also
+    replayed from a CUDA graph that captured the wrapper), one launch
+    alone and a call timed; the runs' spread. Returns a dict."""
+    import torch
+
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.tools.timing import call_ms
+
+    want = rp.right_run_ref(*args, **kw)
+    err, ms_graph, ms = _timed(rp.right_run, args, kw, (rp.right_run,),
+                               (want,), label, "RR", reps)
+    plain_ms = call_ms(lambda: rp.right_run_ref(*args, **kw), 2, "cuda")
+    n = args[3].numel()
+    W = kw["word_size"]
+    moved, compares = rr_work(args, W, want)
+    bound_ms, by = bound(moved, RR_OPS_PER_BASE * compares)
+    hist = torch.bincount(want.long(), minlength=W + 1).tolist()
+    print(f"RR {label}: n={n} seeds, word {W}, runs 0: {hist[0]}, 1..{W - 1}:"
+          f" {sum(hist[1:W])}, {W} (double words): {hist[W]}; {compares} "
+          f"base compares, {moved} bytes needed (of {nbytes(*args) + 4 * n}"
+          f" in all the inputs and the output), bit-equal (also from a "
+          f"graph); one launch "
+          f"{ms_graph:.4f} ms, a call {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({by})  [{card}]")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "ms_graph": ms_graph,
+            "bound_ms": bound_ms, "bound_by": by, "double_words": hist[W]}
 
 
 def compare_finish(batch, label, card, reps, k1=None):
@@ -376,16 +461,19 @@ def compare_finish(batch, label, card, reps, k1=None):
     from gblastn_tpu_torch import slog
     from gblastn_tpu_torch.engine.seeding import (
         _finish_init_hits,
+        compute_right_runs,
         diag_table_mask,
+        probes_double_words,
         run_seeding,
     )
     from gblastn_tpu_torch.tools.replay_sets import batch_cases
 
     g_args, g_kw, r_args, r_kw = batch_cases(batch)
+    window = r_kw["window"]
     g = compare_gate(g_args, g_kw, label, card, reps)
     r = compare_replay(r_args, r_kw, label, card, reps, keys=(
         g_args[6], r_args[2], g_args[9],
-        diag_table_mask(g_kw["concat_end"] - 1, 0)))
+        diag_table_mask(g_kw["concat_end"] - 1, window)))
     kw, okw = batch.seed_kw, batch.oracle_kw
     n_ctx = len(kw["x_dropoffs"])
     n = g_args[6].numel()
@@ -398,14 +486,26 @@ def compare_finish(batch, label, card, reps, k1=None):
     spans = dict(slog.totals)
     fetched = int(slog.values["seeding.fetch_bytes"])
     need = int(slog.values["seeding.gate_need"])
-    # the host finish on the full fetch of K1's rows (the parent's path)
+    # the host finish on the full fetch of K1's rows (the parent's path),
+    # with two-hit seeding the host's own right runs
     rows = torch.stack([*g_args[6:9], *g_args[10:14]]).cpu().numpy()
     t0 = time.time()
+    runs = None
+    if window:
+        res = batch.seed_dev.resident
+        runs = (compute_right_runs(
+            okw["approx_ctx"]["query"], res.subject2.cpu().numpy(),
+            res.valid.cpu().numpy(), rows[0], rows[1], kw["word_size"])
+            if probes_double_words(batch.seed_dev, kw)
+            else np.zeros(n, np.int32))
     want = _finish_init_hits(
         *rows, okw["word_cutoffs"], okw["subject_starts"], kw["word_size"],
         concat_qlen=int(kw["context_offsets"][n_ctx]) - 2,
-        approx_ctx=okw["approx_ctx"])
+        approx_ctx=okw["approx_ctx"], window_size=window, right_run=runs)
     t_host = time.time() - t0
+    if g_kw["right_run"] is not None:
+        check(np.array_equal(g_kw["right_run"].cpu().numpy(), runs),
+              f"RR's runs differ from compute_right_runs on {label}")
     for name in ("q_off", "s_off", "q_start", "s_start", "length", "score",
                  "context", "oid"):
         check(np.array_equal(getattr(got, name), getattr(want, name)),
@@ -433,10 +533,11 @@ def compare_finish(batch, label, card, reps, k1=None):
 
 
 def finish_entry(name, source, replaces, recs, launches, by_path,
-                 registers):
-    """The kernels line's approx_gate or diag_replay entry: config 2's
-    times and bound, config 1's and the random sets' beside them."""
-    c2 = recs["config2"]
+                 registers, main="config2"):
+    """The kernels line's right_run, approx_gate or diag_replay entry:
+    the ``main`` record's times and bound (config 2's; config 1w's for
+    RR), the other records' beside them."""
+    c2 = recs[main]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": max(r["err"] for r in recs.values()),
@@ -447,16 +548,16 @@ def finish_entry(name, source, replaces, recs, launches, by_path,
     if c2.get("sort_ms") is not None:
         entry["sort_ms"] = c2["sort_ms"]
     for tag, r in recs.items():
-        if tag != "config2":
+        if tag != main:
             entry.update({f"{k}_{tag}": r[k] for k in (
                 "ms", "plain_ms", "bound_ms", "ms_graph")})
     return entry
 
 
-def k1_entry(c2, c1, rand, launches, by_path, registers):
+def k1_entry(c2, c1, rand, launches, by_path, registers, extra=None):
     """The kernels line's ungapped_xdrop entry from compare_k1's records:
-    config 2's times and bound, config 1's and the random set's beside
-    them, and ptxas's registers."""
+    config 2's times and bound, config 1's, the random set's and those of
+    ``extra`` ({tag: record}) beside them, and ptxas's registers."""
     entry = {"name": "ungapped_xdrop", "route": "cuda",
              "source": K1_SOURCE, "replaces": K1_REPLACES,
              "launches": launches,
@@ -465,9 +566,11 @@ def k1_entry(c2, c1, rand, launches, by_path, registers):
              "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
              "library_ms": None, "ms_graph": c2["ms_graph"],
              "registers": registers, "launches_by_path": by_path}
-    for tag, r in (("config1", c1), ("random", rand)):
+    for tag, r in (("config1", c1), ("random", rand),
+                   *(extra or {}).items()):
         entry.update({f"{k}_{tag}": r[k] for k in (
             "ms", "plain_ms", "bound_ms", "ms_graph")})
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["err"])
     return entry
 
 
@@ -668,7 +771,11 @@ def main() -> int:
         setup_batch,
     )
     from gblastn_tpu_torch.engine.seeding import run_seeding, ungapped_inputs
-    from gblastn_tpu_torch.io.fasta import BATCH_SIZE_BLASTN, batch_records
+    from gblastn_tpu_torch.io.fasta import (
+        BATCH_SIZE_BLASTN,
+        BATCH_SIZE_MEGABLAST,
+        batch_records,
+    )
     from gblastn_tpu_torch.ops import _build
     from gblastn_tpu_torch.ops import gapped as og
     from gblastn_tpu_torch.ops import gather as ogt
@@ -685,6 +792,7 @@ def main() -> int:
     k3 = ogt.table_gather
     kg = rp.approx_gate
     kr = rp.diag_replay
+    krr = rp.right_run
 
     # 1. the card
     smi = subprocess.run(
@@ -709,11 +817,12 @@ def main() -> int:
               f"loads {ld} bytes")
     regs = {}
     for source, what in ((K1_SOURCE, "K1"), (G_SOURCE, "G"),
-                         (R_SOURCE, "R")):
+                         (R_SOURCE, "R"), (RR_SOURCE, "RR")):
         name = Path(source).name
         regs[what] = {fn: r for src, fn, r, _st, _ld in ptxas
                       if src == name}
-        check(len(regs[what]) == 1,
+        # R has a one-hit and a two-hit kernel
+        check(len(regs[what]) == (2 if what == "R" else 1),
               f"ptxas reported {what}'s kernels as {regs[what]}")
         check(all(st == ld == 0 for src, _fn, _r, st, ld in ptxas
                   if src == name), f"{what} spills registers")
@@ -763,6 +872,7 @@ def main() -> int:
     plain3 = ogt.table_gather_ref
     plain_g = rp.approx_gate_ref
     plain_r = rp.diag_replay_ref
+    plain_rr = rp.right_run_ref
 
     def guarded1(*args, **kw):
         check(not any(a.is_cuda for a in args),
@@ -791,15 +901,21 @@ def main() -> int:
               "a CUDA tensor reached the plain R on the main path")
         return plain_r(*args, **kw)
 
+    def guarded_rr(*args, **kw):
+        check(not args[3].is_cuda,
+              "a CUDA tensor reached the plain RR on the main path")
+        return plain_rr(*args, **kw)
+
     def guard(on):
         ung.ungapped_extend_window_ref = guarded1 if on else plain1
         og.banded_gapped_scores_ref = guarded2 if on else plain2
         ogt.table_gather_ref = guarded3 if on else plain3
         rp.approx_gate_ref = guarded_g if on else plain_g
         rp.diag_replay_ref = guarded_r if on else plain_r
+        rp.right_run_ref = guarded_rr if on else plain_rr
 
     def counts_zero():
-        for fn in (k1, k2, k3, kg, kr):
+        for fn in (k1, k2, k3, kg, kr, krr):
             fn.launches = 0
 
     # 4b. the path of P1-P3: the scan profiler in full, which holds the
@@ -838,14 +954,9 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
     (work / "genome.fa").write_text(
         ">ecoli_synth synthetic E. coli scale genome\n" + genome + "\n")
-    (work / "reads.fa").write_text("".join(
-        f">{r.seq_id}\n{r.sequence}\n" for r in reads))
     check(cli_main(["makedb", "-in", str(work / "genome.fa"), "-out",
                     str(work / "db"), "-title", "ecoli_synth"]) == 0,
           "makedb failed")
-    blast = ["blastn", "-query", str(work / "reads.fa"), "-db",
-             str(work / "db"), "-outfmt", "6", "-evalue", "1e-5",
-             "-max_target_seqs", "10"]
 
     def run_cli(args, device, out):
         t = time.time()
@@ -854,37 +965,89 @@ def main() -> int:
         check(rc == 0, f"blastn -device {device} exited {rc}")
         return time.time() - t
 
-    guard(True)
-    counts_zero()
-    t_cold = run_cli(blast, "cuda", work / "c1_cuda.tsv")
-    c1_launches = (k1.launches, k2.launches, kg.launches, kr.launches)
+    # a read set through the CLI: -device cuda twice (cold, then warm with
+    # its stage report), the two outputs equal; -device cpu on the first
+    # CLI batch, bytes equal to the cuda lines of its reads, then on all
+    # of them when the whole cpu run would take under about two minutes;
+    # each kernel's launches read around the cold cuda run; the reads
+    # that miss their locus (``loci``) listed. Returns what it measured.
+    def cli_path(tag, rs, loci, qlen, extra):
+        fa = work / f"{tag}.fa"
+        fa.write_text("".join(f">{r.seq_id}\n{r.sequence}\n" for r in rs))
+        args = ["blastn", *extra, "-query", str(fa), "-db",
+                str(work / "db"), "-outfmt", "6", "-max_target_seqs", "10"]
+        guard(True)
+        counts_zero()
+        slog.reset()
+        t_cold = run_cli(args, "cuda", work / f"{tag}_cuda.tsv")
+        launches = (k1.launches, k2.launches, kg.launches, kr.launches,
+                    krr.launches)
+        rejects = slog.diagnostics.device_gapped_rejects
+        slog.reset()
+        t_warm = run_cli(args, "cuda", work / f"{tag}_cuda_warm.tsv")
+        spans = dict(slog.totals)
+        for ln in slog.report().splitlines()[1:]:
+            print(f"stage ({tag} cuda warm): {ln}")
+        guard(False)
+        out = (work / f"{tag}_cuda.tsv").read_bytes()
+        check(out == (work / f"{tag}_cuda_warm.tsv").read_bytes(),
+              f"two {tag} cuda runs disagree")
+        check(not any(k.startswith(("host.approx_gate", "host.diag_filter"))
+                      for k in spans),
+              f"the host gate or replay ran on the {tag} CLI path")
+        task = extra[extra.index("-task") + 1]
+        size = (BATCH_SIZE_MEGABLAST if task == "megablast"
+                else BATCH_SIZE_BLASTN)
+        batches = list(batch_records(iter(rs), size))
+        names = {r.seq_id for r in batches[0]}
+        fa1 = work / f"{tag}_b1.fa"
+        fa1.write_text("".join(f">{r.seq_id}\n{r.sequence}\n"
+                               for r in batches[0]))
+        args1 = list(args)
+        args1[args.index("-query") + 1] = str(fa1)
+        t_cpu = run_cli(args1, "cpu", work / f"{tag}_cpu_b1.tsv")
+        want = b"".join(ln for ln in out.splitlines(keepends=True)
+                        if ln.split(b"\t", 1)[0].decode() in names)
+        check(want == (work / f"{tag}_cpu_b1.tsv").read_bytes(),
+              f"{tag} tabular bytes of the first batch differ between "
+              "-device cuda and cpu")
+        if len(batches) == 1:
+            cpu_note = f"cpu plain {t_cpu:.2f} s, bytes equal"
+        elif t_cpu * len(batches) < 120:
+            t_cpu = run_cli(args, "cpu", work / f"{tag}_cpu.tsv")
+            check(out == (work / f"{tag}_cpu.tsv").read_bytes(),
+                  f"{tag} tabular bytes differ between -device cuda and "
+                  "cpu")
+            cpu_note = f"cpu plain {t_cpu:.2f} s, bytes equal"
+        else:
+            cpu_note = (f"cpu plain {t_cpu:.2f} s for the first CLI batch "
+                        f"({len(batches[0])} reads), whose bytes are equal;"
+                        f" the whole cpu run (about "
+                        f"{t_cpu * len(batches):.0f} s) was not made")
+        missed = tabular_loci_found(out.decode(), loci, qlen) if loci else None
+        seeding = spans.get("device.seeding", 0.0) * 1e3
+        print(f"{tag} cli: {len(rs)} queries in {len(batches)} batches, "
+              f"{out.count(b'\n')} tabular lines, launches K1 "
+              f"{launches[0]} K2 {launches[1]} G {launches[2]} R "
+              f"{launches[3]} RR {launches[4]}, {rejects} rejects; cuda cold "
+              f"{t_cold:.2f} s, warm {t_warm:.2f} s = "
+              f"{len(rs) / t_warm:.1f} q/s (device.seeding {seeding:.1f} ms "
+              f"in all); {cpu_note}"
+              + (f"; {len(missed)} reads missed their locus" if loci else "")
+              + f"  [{card}]")
+        return {"launches": launches, "batches": len(batches),
+                "missed": missed}
+
+    c1 = cli_path("config1", reads,
+                  {r.seq_id: s for r, s in zip(reads, starts)}, QUERY_LEN,
+                  ["-task", "megablast", "-evalue", "1e-5"])
+    c1_launches = c1["launches"]
     check(c1_launches[0] > 0, "K1 was not launched on the config-1 path")
     check(c1_launches[2] > 0 and c1_launches[3] > 0,
-          f"G / R were launched {c1_launches[2:]} times on config 1's path")
-    slog.reset()
-    t_warm = run_cli(blast, "cuda", work / "c1_cuda_warm.tsv")
-    for ln in slog.report().splitlines()[1:]:
-        print(f"stage (config1 cuda warm): {ln}")
-    t_cpu = run_cli(blast, "cpu", work / "c1_cpu.tsv")
-    guard(False)
-    out_cuda = (work / "c1_cuda.tsv").read_bytes()
-    check(out_cuda == (work / "c1_cuda_warm.tsv").read_bytes(),
-          "two cuda runs disagree")
-    check(out_cuda == (work / "c1_cpu.tsv").read_bytes(),
-          "config-1 tabular bytes differ between -device cuda and cpu")
-    missing = tabular_loci_found(
-        out_cuda.decode(), {r.seq_id: s for r, s in zip(reads, starts)},
-        QUERY_LEN,
-    )
-    check(not missing, f"reads missing their source locus: {missing[:5]}")
-    n_lines = out_cuda.count(b"\n")
-    print(f"config1 cli: {NUM_QUERIES} queries, {n_lines} tabular lines, "
-          f"launches K1 {c1_launches[0]} K2 {c1_launches[1]} G "
-          f"{c1_launches[2]} R {c1_launches[3]}; cuda cold "
-          f"{t_cold:.2f} s, warm {t_warm:.2f} s = "
-          f"{NUM_QUERIES / t_warm:.1f} q/s; cpu plain {t_cpu:.2f} s; "
-          f"bytes equal, all {NUM_QUERIES} loci found  [{card}]")
-    del reads
+          f"G / R were launched {c1_launches[2:4]} times on config 1's path")
+    check(c1_launches[4] == 0, "RR was launched on the one-hit config 1")
+    check(not c1["missed"],
+          f"reads missing their source locus: {c1['missed'][:5]}")
 
     # 6. config 2: blastn word 11 on 200 x 1.5 kb reads, same genome
     rng2 = np.random.default_rng(SEED + 2)
@@ -927,7 +1090,7 @@ def main() -> int:
         t = time.time() - t
         os.environ.pop("GBLASTN_TPU_GAPPED_FILTER")
         return (res, t, (k1.launches, k2.launches, kg.launches,
-                         kr.launches), dict(slog.totals),
+                         kr.launches, krr.launches), dict(slog.totals),
                 slog.diagnostics.device_gapped_rejects,
                 slog.diagnostics.gapped_extensions, dict(slog.values))
 
@@ -937,8 +1100,8 @@ def main() -> int:
     guard(False)
     res_on, t_on, s_launch, spans_on, rejects, ext_on, vals_on = on
     res_off, t_off, off_launch, spans_off, _r, ext_off, _v = off
-    check(min(s_launch) >= 1,
-          f"config-2 search launches K1/K2/G/R {s_launch}")
+    check(min(s_launch[:4]) >= 1 and s_launch[4] == 0,
+          f"config-2 search launches K1/K2/G/R/RR {s_launch}")
     check(not any(k.startswith("host.approx_gate")
                   or k.startswith("host.diag_filter") for k in spans_on),
           "the host gate or replay ran on the config-2 search path")
@@ -972,70 +1135,148 @@ def main() -> int:
               f"{spans_off.get(name, 0.0) * 1e3:.1f} ms")
     del res_on, res_off
 
-    # 6b. config 2 through the CLI
-    (work / "reads2.fa").write_text("".join(
-        f">{r.seq_id}\n{r.sequence}\n" for r in reads2))
-    blast2 = ["blastn", "-task", "blastn", "-query",
-              str(work / "reads2.fa"), "-db", str(work / "db"), "-outfmt",
-              "6", "-evalue", "1e-5", "-max_target_seqs", "10"]
-    n_batches = len(list(batch_records(iter(reads2), BATCH_SIZE_BLASTN)))
-    guard(True)
-    counts_zero()
-    slog.reset()
-    t2_cold = run_cli(blast2, "cuda", work / "c2_cuda.tsv")
-    c2_launches = (k1.launches, k2.launches, kg.launches, kr.launches)
-    c2_rejects = slog.diagnostics.device_gapped_rejects
-    slog.reset()
-    t2_warm = run_cli(blast2, "cuda", work / "c2_cuda_warm.tsv")
-    for ln in slog.report().splitlines()[1:]:
-        print(f"stage (config2 cuda warm): {ln}")
-    guard(False)
+    # 6b. config 2 through the CLI: K2 runs on every batch
+    c2 = cli_path("config2", reads2,
+                  {r.seq_id: s for r, s in zip(reads2, starts2)},
+                  C2_QUERY_LEN, ["-task", "blastn", "-evalue", "1e-5"])
+    c2_launches, n_batches = c2["launches"], c2["batches"]
     check(c2_launches[0] >= 1, "K1 was not launched on the config-2 CLI")
     check(c2_launches[1] == n_batches,
           f"K2 ran {c2_launches[1]} times over {n_batches} CLI batches")
     check(c2_launches[2] == c2_launches[3] == n_batches,
-          f"G / R ran {c2_launches[2:]} times over {n_batches} CLI batches")
-    out2 = (work / "c2_cuda.tsv").read_bytes()
-    check(out2 == (work / "c2_cuda_warm.tsv").read_bytes(),
-          "two config-2 cuda runs disagree")
-    missing = tabular_loci_found(
-        out2.decode(), {r.seq_id: s for r, s in zip(reads2, starts2)},
-        C2_QUERY_LEN,
-    )
-    check(not missing, f"config-2 reads missing their locus: {missing[:5]}")
-    # -device cpu: the first CLI batch, then all of them when the whole
-    # run would take under about two minutes
-    first = next(batch_records(iter(reads2), BATCH_SIZE_BLASTN))
-    names = {r.seq_id for r in first}
-    (work / "reads2_b1.fa").write_text("".join(
-        f">{r.seq_id}\n{r.sequence}\n" for r in first))
-    blast2_b1 = list(blast2)
-    blast2_b1[blast2.index("-query") + 1] = str(work / "reads2_b1.fa")
-    t2_cpu = run_cli(blast2_b1, "cpu", work / "c2_cpu_b1.tsv")
-    want_b1 = b"".join(ln for ln in out2.splitlines(keepends=True)
-                       if ln.split(b"\t", 1)[0].decode() in names)
-    check(want_b1 == (work / "c2_cpu_b1.tsv").read_bytes(),
-          "config-2 tabular bytes of the first batch differ between "
-          "-device cuda and cpu")
-    if t2_cpu * n_batches < 120:
-        t2_cpu = run_cli(blast2, "cpu", work / "c2_cpu.tsv")
-        check(out2 == (work / "c2_cpu.tsv").read_bytes(),
-              "config-2 tabular bytes differ between -device cuda and cpu")
-        cpu_note = f"cpu plain {t2_cpu:.2f} s, bytes equal"
-    else:
-        cpu_note = (f"cpu plain {t2_cpu:.2f} s for the first CLI batch "
-                    f"({len(first)} reads), whose bytes are equal; the "
-                    f"whole cpu run (about {t2_cpu * n_batches:.0f} s) "
-                    "was not made")
-    n_lines = out2.count(b"\n")
-    print(f"config2 cli: {C2_QUERIES} queries in {n_batches} batches, "
-          f"{n_lines} tabular lines, launches K1 {c2_launches[0]} K2 "
-          f"{c2_launches[1]} G {c2_launches[2]} R {c2_launches[3]}, "
-          f"{c2_rejects} rejects; cuda cold "
-          f"{t2_cold:.2f} s, warm {t2_warm:.2f} s = "
-          f"{C2_QUERIES / t2_warm:.1f} q/s; {cpu_note}; all "
-          f"{C2_QUERIES} loci found  [{card}]")
-    del genome, db, reads2
+          f"G / R ran {c2_launches[2:4]} times over {n_batches} CLI batches")
+    check(c2_launches[4] == 0, "RR was launched on the one-hit config 2")
+    check(not c2["missed"],
+          f"config-2 reads missing their locus: {c2['missed'][:5]}")
+
+    # 6c. two-hit seeding and discontiguous megablast: configs 1w
+    # (megablast -window_size 40: word 28 over LUT width 12, so RR
+    # probes), 2w (blastn -window_size 40: LUT width 11, the rr_zero
+    # rule) and 2d (dc-megablast, template 18 coding, window 40: rr_zero
+    # too); at each, RR (1w), G and the two-hit R against their plain
+    # versions and run_seeding against the host oracle with the window;
+    # K1 on 2d's discontiguous seeds; RR and the two-hit R on their
+    # random sets
+    from gblastn_tpu_torch.engine.seeding import probes_double_words
+    from gblastn_tpu_torch.tools.prof_e2e import config_options
+    from gblastn_tpu_torch.tools.replay_sets import batch_run_case
+
+    pairs2d, starts2d = config2d_reads(genome)
+    reads2d = [FastaRecord(n, "", s) for n, s in pairs2d]
+    two_hit = {"config1w": (reads, starts, QUERY_LEN),
+               "config2w": (reads2, starts2, C2_QUERY_LEN),
+               "config2d": (reads2d, starts2d, C2_QUERY_LEN)}
+    rr_recs, g2_recs, r2_recs = {}, {}, {}
+    for name, (rs, _st, _ql) in two_hit.items():
+        b = setup_batch(rs, db, config_options(name), dev)
+        kw_b = b.seed_kw
+        probes = probes_double_words(b.seed_dev, kw_b)
+        check(probes == (name == "config1w"),
+              f"{name}: RR {'runs' if probes else 'does not run'}")
+        print(f"{name} seeding: word {kw_b['word_size']}, lut word "
+              f"{kw_b['lut_word']}, scan step {kw_b['scan_step']}, window "
+              f"{b.seed_dev.window}, template "
+              f"{kw_b['disc_offsets'] or 'contiguous'}; RR "
+              f"{'runs' if probes else 'does not run (rr_zero)'}")
+        if name == "config2d":
+            k1_2d = compare_k1(ungapped_inputs(b.seed_dev, **kw_b)[1],
+                               "config-2d discontiguous seeds", card, 20)
+        if probes:
+            rr_recs[name] = compare_run(*batch_run_case(b), f"{name} batch",
+                                        card, 20)
+        g2_recs[name], r2_recs[name] = compare_finish(b, f"{name} batch",
+                                                      card, 20)
+        del b
+    rr_rand = [compare_run(a, kw, label, card, 20)
+               for label, a, kw in replay_sets.random_run_cases(dev)]
+    r2_rand = [compare_replay(a, kw, label, card, 20)
+               for label, a, kw in replay_sets.random_two_hit_cases(dev)]
+    check(min(r["double_words"] for r in rr_rand) > 0,
+          "RR's random sets hold no double word")
+
+    # 6d. config 2d through search(), twice (its first call builds the
+    # batch's tables on a warm card)
+    d_opts = config_options("config2d")
+    d_runs = []
+    guard(True)
+    for _ in range(2):
+        counts_zero()
+        slog.reset()
+        t = time.time()
+        res = search(reads2d, db, d_opts, device=dev)
+        torch.cuda.synchronize()
+        d_runs.append((time.time() - t, (k1.launches, k2.launches,
+                                         kg.launches, kr.launches,
+                                         krr.launches), dict(slog.totals)))
+    guard(False)
+    d_launch, d_spans = d_runs[-1][1], d_runs[-1][2]
+    check(min(d_launch[0], d_launch[2], d_launch[3]) >= 1
+          and d_launch[4] == 0,
+          f"config-2d search launches K1/K2/G/R/RR {d_launch}")
+    check(not any(k.startswith(("host.approx_gate", "host.diag_filter"))
+                  for k in d_spans),
+          "the host gate or replay ran on the config-2d search path")
+    d_found = sum(
+        any(h.s_off < starts2d[q.query_index] + C2_QUERY_LEN
+            and h.s_end > starts2d[q.query_index]
+            for lst in q.hsplists for h in lst.hsps) for q in res.queries)
+    # dc-megablast on reads with a third of their third codon positions
+    # changed may lose a read (no two template hits within the window):
+    # counted and printed, not a failure
+    print(f"config2d search: {C2_QUERIES} reads, {d_found} found their "
+          f"locus ({C2_QUERIES - d_found} missed), launches K1 "
+          f"{d_launch[0]} K2 {d_launch[1]} G {d_launch[2]} R {d_launch[3]} "
+          f"RR {d_launch[4]}; search {d_runs[0][0]:.3f} s then "
+          f"{d_runs[1][0]:.3f} s; device.seeding "
+          f"{d_spans['device.seeding'] * 1e3:.2f} ms (finish "
+          f"{d_spans['device.seeding.finish'] * 1e3:.2f}, fetch "
+          f"{d_spans['device.seeding.fetch'] * 1e3:.2f})  [{card}]")
+    for key in sorted(d_spans):
+        print(f"stage (config2d search): {key} {d_spans[key] * 1e3:.1f} ms")
+    del res
+
+    # 6e. configs 1w, 2w and 2d, a blastn-short batch and a vecscreen
+    # batch through the CLI (cli_path)
+    cli_paths = {}
+    for tag, extra in (("config1w", ["-task", "megablast", "-evalue",
+                                     "1e-5", "-window_size", "40"]),
+                       ("config2w", ["-task", "blastn", "-evalue", "1e-5",
+                                     "-window_size", "40"]),
+                       ("config2d", ["-task", "dc-megablast", "-evalue",
+                                     "1e-5"])):
+        rs, st, ql = two_hit[tag]
+        cli_paths[tag] = cli_path(
+            tag, rs, {r.seq_id: x for r, x in zip(rs, st)}, ql, extra)
+    # blastn-short: 60 reads of 40 bases (one substitution in half of
+    # them, every third reverse-complemented); vecscreen: 30 reads of
+    # 400 bases with 2% substitutions
+    rng5 = np.random.default_rng(SEED + 7)
+    comp = str.maketrans("ACGT", "TGCA")
+    short, vec = [], []
+    for i in range(60):
+        st = int(rng5.integers(0, len(genome) - 40))
+        r = list(genome[st: st + 40])
+        if i % 2:
+            p = int(rng5.integers(0, 40))
+            r[p] = "ACGT"[("ACGT".index(r[p]) + 1) % 4]
+        seq = "".join(r)
+        short.append(FastaRecord(f"s{i}", "", seq.translate(comp)[::-1]
+                                 if i % 3 == 0 else seq))
+    vec_pairs, vec_starts = sample_reads(rng5, genome, 30, 400, "v")
+    vec = [FastaRecord(n, "", x) for n, x in vec_pairs]
+    cli_paths["blastn_short"] = cli_path("blastn_short", short, None, 40,
+                                         ["-task", "blastn-short"])
+    cli_paths["vecscreen"] = cli_path(
+        "vecscreen", vec, {r.seq_id: x for r, x in zip(vec, vec_starts)},
+        400, ["-task", "vecscreen"])
+    for tag, c in cli_paths.items():
+        ln, nb = c["launches"], c["batches"]
+        rr_ok = (ln[4] == nb) if tag == "config1w" else ln[4] == 0
+        check(ln[0] >= nb and ln[3] == nb and rr_ok,
+              f"{tag} CLI launches K1/K2/G/R/RR {ln} over {nb} batches")
+        check(ln[2] == (0 if tag == "blastn_short" else nb),
+              f"{tag} CLI launched G {ln[2]} times over {nb} batches")
+    del genome, db, reads, reads2, reads2d
 
     # 7. scale: one 500-read batch against a 300 Mb resident genome
     t0 = time.time()
@@ -1073,15 +1314,21 @@ def main() -> int:
     # timed at its shapes (K1 also at config 1's); the table gather's
     # path is prof_scan_parts, and it is timed at P3's shape
     paths = {"config1_cli": c1_launches, "config2_search": s_launch,
-             "config2_cli": c2_launches}
+             "config2_cli": c2_launches, "config2d_search": d_launch,
+             **{f"{t}_cli": c["launches"] for t, c in cli_paths.items()}}
     k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
-    g_recs = {"config2": g_c2, "config1": g_c1, "random": g_rand}
+    g_recs = {"config2": g_c2, "config1": g_c1, "random": g_rand,
+              **g2_recs}
     r_recs = {"config2": r_c2, "config1": r_c1,
-              **{f"random{i}": r for i, r in enumerate(r_rand)}}
+              **{f"random{i}": r for i, r in enumerate(r_rand)},
+              **r2_recs,
+              **{f"random_two_hit{i}": r for i, r in enumerate(r2_rand)}}
+    rr_all = {**rr_recs, "random11": rr_rand[0], "random28": rr_rand[1]}
     print(smi)
     print(json.dumps({"kernels": [
         k1_entry(k1_c2, k1_c1, k1_rand, c2_launches[0],
-                 {p: c[0] for p, c in paths.items()}, regs["K1"]),
+                 {p: c[0] for p, c in paths.items()}, regs["K1"],
+                 {"config2d": k1_2d}),
         {"name": "gapped_band", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": c2_launches[1],
          "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],
@@ -1097,6 +1344,10 @@ def main() -> int:
         finish_entry("diag_replay", R_SOURCE, R_REPLACES, r_recs,
                      c2_launches[3], {p: c[3] for p, c in paths.items()},
                      regs["R"]),
+        finish_entry("right_run", RR_SOURCE, RR_REPLACES, rr_all,
+                     cli_paths["config1w"]["launches"][4],
+                     {p: c[4] for p, c in paths.items()}, regs["RR"],
+                     main="config1w"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

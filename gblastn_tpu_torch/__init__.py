@@ -1,9 +1,12 @@
 """gblastn_tpu_torch: the PyTorch / CUDA port of gblastn_tpu.
 
-The same megablast and blastn searches as ``gblastn_tpu`` (same options,
-same HSPs, same output bytes), with the device path written in PyTorch
-and the ungapped X-drop (K1) and banded gapped-DP (K2) kernels written in
-CUDA C++ for Hopper (sm_90a). The host stages (query setup, lookup
+The same megablast, blastn, blastn-short, vecscreen and dc-megablast
+searches as ``gblastn_tpu``, one-hit or two-hit (same options, same HSPs,
+same output bytes), with the device path written in PyTorch and its
+kernels written in CUDA C++ for Hopper (sm_90a): the ungapped X-drop
+(K1), the banded gapped DP (K2), and the seeding finish's double-word
+probe (RR), approximate gate (G) and diagonal replay (R). The host stages
+(query setup, lookup
 table, gapped extension, traceback, formatting) are the port's own
 copies of the JAX package's JAX-free modules, at the same relative
 paths; this package imports ``torch`` and never ``jax`` or
@@ -17,8 +20,8 @@ Public API:
     db = SequenceDB.from_fasta("genome.fa")
     results = search(queries, db, megablast_options(), device="cuda")
 
-``FastaRecord`` (a query), ``blastn_options`` and ``slog`` (the stage
-timer behind ``-logfile``) are exported too.
+``FastaRecord`` (a query), ``blastn_options``, ``options_for_task`` and
+``slog`` (the stage timer behind ``-logfile``) are exported too.
 """
 
 __version__ = "0.2.0"

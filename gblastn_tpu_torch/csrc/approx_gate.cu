@@ -26,8 +26,10 @@
 //   ends after a step that leaves it below -x_drop.
 // A gated seed whose approximate score is below its context's reduced
 // cutoff is demoted: its rows become q_start = a_q, s_start = a_s,
-// length = max(s_off + word - a_s, a_r - a_q + 1), score = a_score (as
-// engine/seeding.py::_finish_init_hits writes them), flags |= 2. Every
+// length = max(s_off + word + run - a_s, a_r - a_q + 1), score = a_score
+// (as engine/seeding.py::_finish_init_hits writes them; run is the seed's
+// right run from RR with two-hit seeding, 0 where right_run is a null
+// pointer), flags |= 2. Every
 // gated seed gets flags |= 1. Other seeds keep K1's rows.
 //
 // Ranges, checked here so that a launch waits on nothing: a seed whose
@@ -103,8 +105,9 @@ approx_gate_kernel(const uint8_t* __restrict__ qbytes,
                    const int32_t* __restrict__ ctx_tables,
                    const long long* __restrict__ sub_starts,
                    const long long* __restrict__ sub_ends, Seeds in,
-                   int QB, int P, int n_ctx, int n_sub, int n, int word,
-                   int concat_end, Outs out) {
+                   const int32_t* __restrict__ right_run, int QB, int P,
+                   int n_ctx, int n_sub, int n, int word, int concat_end,
+                   Outs out) {
   __shared__ int tab[256];
   for (int e = threadIdx.x; e < 256; e += blockDim.x) tab[e] = table256[e];
   __syncthreads();
@@ -158,7 +161,8 @@ approx_gate_kernel(const uint8_t* __restrict__ qbytes,
         const long long a_s = s_ext - 4LL * l.pos + st;
         const long long a_r = (r.pos > 0 ? q_ext + 4LL * r.pos - 1 : q_ext)
                               + 1;
-        const long long by_seed = (long long)s_off + word - a_s;
+        const long long run = right_run != nullptr ? right_run[i] : 0;
+        const long long by_seed = (long long)s_off + word + run - a_s;
         const long long by_walk = a_r - a_q + 1;
         rq = (int)a_q;
         rs = (int)a_s;
@@ -184,9 +188,9 @@ extern "C" int gblastn_approx_gate(
     const void* ctx_tables, const void* sub_starts, const void* sub_ends,
     const void* q_off, const void* s_off, const void* ctx, const void* oid,
     const void* ug_q, const void* ug_s, const void* ug_len,
-    const void* ug_score, int QB, int P, int n_ctx, int n_sub, int n,
-    int word, int concat_end, void* out_q, void* out_s, void* out_len,
-    void* out_score, void* out_flags, void* stream) {
+    const void* ug_score, const void* right_run, int QB, int P, int n_ctx,
+    int n_sub, int n, int word, int concat_end, void* out_q, void* out_s,
+    void* out_len, void* out_score, void* out_flags, void* stream) {
   if (n <= 0) return 0;
   const Seeds in{(const int32_t*)q_off, (const int32_t*)s_off,
                  (const int32_t*)ctx,   (const int32_t*)oid,
@@ -198,7 +202,8 @@ extern "C" int gblastn_approx_gate(
                        (cudaStream_t)stream>>>(
       (const uint8_t*)qbytes, (const uint8_t*)packed,
       (const int32_t*)table256, (const int32_t*)ctx_tables,
-      (const long long*)sub_starts, (const long long*)sub_ends, in, QB, P,
-      n_ctx, n_sub, n, word, concat_end, out);
+      (const long long*)sub_starts, (const long long*)sub_ends, in,
+      (const int32_t*)right_run, QB, P, n_ctx, n_sub, n, word, concat_end,
+      out);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,40 @@
-// R on Hopper: the per-diagonal one-hit replay.
+// R on Hopper: the per-diagonal replay, one-hit and two-hit.
 //
-// Replaces diag_replay_device with window == 0 (gblastn_tpu/ops/
-// seeding.py:1013), an XLA program of the JAX package, and the host
-// replay it twins (engine/seeding.py::one_hit_diag_filter). Semantics are
-// those of s_BlastnDiagTableExtendInitialHit (NCBI na_ungapped.c:612-755)
-// with window 0: seeds in the order (oid, masked diagonal, s, q, index);
-// per (oid, masked diagonal), last_hit starts at 0; a seed with s <
-// last_hit is skipped; a seed whose score is at least its cutoff is saved
-// and sets last_hit to the end of its ungapped extension; any other sets
-// it to s + word.
+// Replaces diag_replay_device (gblastn_tpu/ops/seeding.py:1013), an XLA
+// program of the JAX package, and the host replays it twins
+// (engine/seeding.py::one_hit_diag_filter and two_hit_diag_filter).
+// Semantics are those of s_BlastnDiagTableExtendInitialHit (NCBI
+// na_ungapped.c:612-755) with scan range 0: seeds in the order (oid,
+// masked diagonal, s, q, index); per (oid, masked diagonal), a seed with
+// s < last_hit is skipped.
+//   window == 0 (one-hit): last_hit starts at 0; a seed whose score is at
+//   least its cutoff is saved and sets last_hit to the end of its
+//   ungapped extension; any other sets it to s + word. right_run is not
+//   read.
+//   window > 0 (two-hit): the state is (last_hit, flag), starting at
+//   (-window, 0) on a virgin diagonal (s_BlastDiagClear,
+//   blast_extend.c:108). A seed takes the first-hit branch when the flag
+//   is set or when s + word > last_hit + window (strictly); there its
+//   word end s + word gains its right run (right_run, RR's; a null
+//   pointer means runs of 0) and it is ready only if the run is at least
+//   word (a double word). Off that branch (a second hit within the
+//   window) it is ready. A ready seed whose score is at least its cutoff
+//   is saved and sets last_hit to its extension's end; any other sets it
+//   to its word end. The flag becomes whether the seed was saved.
+//
+// The jump below stays exact with two-hit: it only needs the next seed
+// the machine processes to be the first later seed of the segment with
+// s >= last_hit, which holds for any last_hit since s ascends inside a
+// segment and every seed before it is skipped. And every processed seed
+// moves last_hit past its own s (a failure sets s + word, plus the run on
+// the first-hit branch; a save sets the extension's end), so the machine
+// never stalls.
+//
+// Two kernels share the walk: diag_replay_kernel (one-hit: int32 state,
+// no run read) and diag_replay_two_hit_kernel (int64 state, the flag and
+// the runs), so that the one-hit paths pay nothing for the two-hit
+// machine (with one kernel for both, one-hit R took 6% longer at 887,574
+// seeds on an H100).
 //
 // The caller sorts (ops/replay.py::replay_keys: two stable sorts of
 // 64-bit keys, torch.sort): key[p] is the primary key (oid << 32 |
@@ -38,10 +64,13 @@
 // loads, as a group does, so shorter skips stay with the groups.
 //
 // What bounds it: bytes. Each sorted row is read once (key and index, 8
-// bytes each, and the seed's four int32) and one byte written, 33 bytes a
-// seed; the state machine is two compares and a select a seed.
+// bytes each, and the seed's four int32, five with two-hit's run) and one
+// byte written, 33 bytes a seed (37 with runs); the state machine is a
+// few compares and selects a seed.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,10 +82,11 @@ constexpr int kStride = 64;       // the search's first stride
 
 // Whether the walk stops at sorted position r: the segment of key k
 // ended there, or its seed starts at or after last.
+template <typename Last>
 __device__ __forceinline__ bool stops(const long long* key,
                                       const long long* order,
                                       const int32_t* s_loc, int n,
-                                      long long k, int last, int r) {
+                                      long long k, Last last, int r) {
   return r >= n || __ldg(key + r) != k ||
          __ldg(s_loc + __ldg(order + r)) >= last;
 }
@@ -64,9 +94,10 @@ __device__ __forceinline__ bool stops(const long long* key,
 // The first sorted position r >= lo at which the walk stops (keys
 // ascend, and s ascends inside a segment): probes at lo + kStride - 1,
 // then strides that double, then a binary search inside the last one.
+template <typename Last>
 __device__ int next_stop(const long long* key, const long long* order,
                          const int32_t* s_loc, int n, long long k,
-                         int last, int lo) {
+                         Last last, int lo) {
   long long step = 2 * kStride;
   int hi = (int)(lo + kStride - 1LL < n ? lo + kStride - 1LL : n);
   while (!stops(key, order, s_loc, n, k, last, hi)) {
@@ -84,19 +115,25 @@ __device__ int next_stop(const long long* key, const long long* order,
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-diag_replay_kernel(const long long* __restrict__ key,
-                   const long long* __restrict__ order,
-                   const int32_t* __restrict__ s_loc,
-                   const int32_t* __restrict__ end_loc,
-                   const int32_t* __restrict__ score,
-                   const int32_t* __restrict__ cutoff, int n, int word,
-                   uint8_t* __restrict__ saved) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n) return;
+// The walk of the segment headed by sorted position p. One-hit keeps
+// int32 state and reads no run; two-hit keeps int64 state (last +
+// window and s + word + run must not wrap), the flag, and each seed's
+// run (right_run, or 0 where it is a null pointer).
+template <bool kTwoHit>
+__device__ __forceinline__ void walk(const long long* __restrict__ key,
+                                     const long long* __restrict__ order,
+                                     const int32_t* __restrict__ s_loc,
+                                     const int32_t* __restrict__ end_loc,
+                                     const int32_t* __restrict__ score,
+                                     const int32_t* __restrict__ cutoff,
+                                     const int32_t* __restrict__ right_run,
+                                     int n, int word, int window, int p,
+                                     uint8_t* __restrict__ saved) {
+  using Last = typename std::conditional<kTwoHit, long long, int>::type;
   const long long k = key[p];
   if (p > 0 && key[p - 1] == k) return;
-  int last = 0;
+  Last last = kTwoHit ? -window : 0;
+  bool flag = false;
   for (int p0 = p;;) {
     // every load of the group is made, at a valid address (the last
     // position, index 0), so that none waits behind a branch
@@ -109,23 +146,29 @@ diag_replay_kernel(const long long* __restrict__ key,
       in[t] = p0 + t < n && __ldg(key + q) == k;
       idx[t] = in[t] ? o : 0;
     }
-    int s[kGroup], e[kGroup];
+    int s[kGroup], e[kGroup], run[kGroup];
     bool pass[kGroup];
 #pragma unroll
     for (int t = 0; t < kGroup; ++t) {
       s[t] = __ldg(s_loc + idx[t]);
       e[t] = __ldg(end_loc + idx[t]);
       pass[t] = __ldg(score + idx[t]) >= __ldg(cutoff + idx[t]);
+      if (kTwoHit)
+        run[t] = right_run != nullptr ? __ldg(right_run + idx[t]) : 0;
     }
 #pragma unroll
     for (int t = 0; t < kGroup; ++t) {
       if (in[t] && s[t] >= last) {
-        if (pass[t]) {
-          saved[idx[t]] = 1;
-          last = e[t];
-        } else {
-          last = s[t] + word;
+        Last word_end = (Last)s[t] + word;
+        bool ready = true;
+        if (kTwoHit && (flag || word_end > last + window)) {
+          word_end += run[t];
+          ready = run[t] >= word;
         }
+        const bool save = ready && pass[t];
+        if (save) saved[idx[t]] = 1;
+        last = save ? (Last)e[t] : word_end;
+        flag = save;
       }
     }
     // keys ascend, so the segment ended at the first position not in it
@@ -136,6 +179,36 @@ diag_replay_kernel(const long long* __restrict__ key,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+diag_replay_kernel(const long long* __restrict__ key,
+                   const long long* __restrict__ order,
+                   const int32_t* __restrict__ s_loc,
+                   const int32_t* __restrict__ end_loc,
+                   const int32_t* __restrict__ score,
+                   const int32_t* __restrict__ cutoff, int n, int word,
+                   uint8_t* __restrict__ saved) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < n)
+    walk<false>(key, order, s_loc, end_loc, score, cutoff, nullptr, n, word,
+                0, p, saved);
+}
+
+__global__ void __launch_bounds__(kThreads)
+diag_replay_two_hit_kernel(const long long* __restrict__ key,
+                           const long long* __restrict__ order,
+                           const int32_t* __restrict__ s_loc,
+                           const int32_t* __restrict__ end_loc,
+                           const int32_t* __restrict__ score,
+                           const int32_t* __restrict__ cutoff,
+                           const int32_t* __restrict__ right_run, int n,
+                           int word, int window,
+                           uint8_t* __restrict__ saved) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < n)
+    walk<true>(key, order, s_loc, end_loc, score, cutoff, right_run, n,
+               word, window, p, saved);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, reads no
@@ -144,14 +217,22 @@ diag_replay_kernel(const long long* __restrict__ key,
 extern "C" int gblastn_diag_replay(const void* key, const void* order,
                                    const void* s_loc, const void* end_loc,
                                    const void* score, const void* cutoff,
-                                   int n, int word, void* saved,
-                                   void* stream) {
+                                   const void* right_run, int n, int word,
+                                   int window, void* saved, void* stream) {
   if (n <= 0) return 0;
-  diag_replay_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const long long*)key, (const long long*)order,
-      (const int32_t*)s_loc, (const int32_t*)end_loc,
-      (const int32_t*)score, (const int32_t*)cutoff, n, word,
-      (uint8_t*)saved);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (window > 0)
+    diag_replay_two_hit_kernel<<<blocks, kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        (const long long*)key, (const long long*)order,
+        (const int32_t*)s_loc, (const int32_t*)end_loc,
+        (const int32_t*)score, (const int32_t*)cutoff,
+        (const int32_t*)right_run, n, word, window, (uint8_t*)saved);
+  else
+    diag_replay_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)key, (const long long*)order,
+        (const int32_t*)s_loc, (const int32_t*)end_loc,
+        (const int32_t*)score, (const int32_t*)cutoff, n, word,
+        (uint8_t*)saved);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
 """End-to-end megablast and blastn search on one device, in PyTorch.
 
 The port's counterpart of ``gblastn_tpu/engine/search.py``: the same
-host setup (query block, masks, lookup table, derived parameters), then
-the resident seeding path on the chosen device (scan, mini-extension and
-K1; engine.seeding), the device banded-DP filter (K2) in front of the
-host gapped prelim when a batch has enough candidates, hitlist
-collection, traceback and ranking. The port covers one-hit megablast and
-one-hit blastn (``-task blastn``, word 11, DP extension) over a database
-held resident on one device; every other search shape raises
+host setup (query block, masks, lookup table or the two tables of a
+discontiguous template pair, derived parameters), then the resident
+seeding path on the chosen device (scan, mini-extension, K1 and the
+device finish; engine.seeding), the device banded-DP filter (K2) in
+front of the host gapped prelim when a batch has enough candidates,
+hitlist collection, traceback and ranking. The port covers megablast,
+blastn, blastn-short, vecscreen and dc-megablast (every template), with
+one-hit or two-hit seeding (``window_size``), over a database held
+resident on one device; every other search shape raises
 NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -29,9 +31,13 @@ from gblastn_tpu_torch.hits import (
 from gblastn_tpu_torch.io.fasta import FastaRecord
 from gblastn_tpu_torch.io.query import QueryBlock, build_query_block
 from gblastn_tpu_torch.io.seqdb import SequenceDB
-from gblastn_tpu_torch.lut.builder import build_lookup_table, unmasked_locations
+from gblastn_tpu_torch.lut.builder import (
+    build_disc_lookup_table,
+    build_lookup_table,
+    unmasked_locations,
+)
 from gblastn_tpu_torch.params.derived import SearchParams, derive_params
-from gblastn_tpu_torch.params.options import SearchOptions, Task
+from gblastn_tpu_torch.params.options import SearchOptions
 from gblastn_tpu_torch.stats.karlin import nucl_score_matrix
 from gblastn_tpu_torch.traceback.stage import traceback_from_hsplist
 from gblastn_tpu_torch.utils.profiling import slog
@@ -107,11 +113,9 @@ def _refuse_outside_slice(records, options: SearchOptions) -> None:
             f"(ROADMAP Queue 1 item {item})"
         )
 
-    if (options.task not in (Task.MEGABLAST, Task.BLASTN)
-            or options.template_length):
-        no(f"-task {options.task.value}", 10)
-    if options.window_size > 0:
-        no("two-hit seeding (window_size > 0)", 10)
+    if options.window_size > 0 and options.off_diagonal_range > 0:
+        no("two-hit seeding with -off_diagonal_range (a replay across "
+           "diagonals)", 10)
     if options.use_index:
         no("-use_index", 13)
     if options.db_soft_mask is not None or options.db_hard_mask is not None:
@@ -135,7 +139,7 @@ class BatchSetup:
     params: SearchParams
     masks: list[list[tuple[int, int]]] | None
     seed_dev: SeedingDeviceData
-    seed_kw: dict           # run_seeding keywords
+    seed_kw: dict           # run_seeding keywords (= ungapped_inputs')
     query: torch.Tensor     # uint8[Q] query bytes on the device (K2 reads)
     oracle_kw: dict         # the host oracle's own inputs: word_cutoffs,
                             # subject_starts, approx_ctx (the keywords of
@@ -228,11 +232,25 @@ def setup_batch(
             for a, b in ctx_masks:
                 qblock.buffer[a: b + 1] = 14
 
+    lut2 = None   # the second template's table (coding_and_optimal)
     with slog.time("setup.lookup_table"):
-        lut = build_lookup_table(
-            qblock.buffer, locations, options.word_size,
-            options.lut_word_size,
-        )
+        if options.template_length:
+            pair = options.template_type == "coding_and_optimal"
+            lut = build_disc_lookup_table(
+                qblock.buffer, locations, options.word_size,
+                options.template_length,
+                "coding" if pair else options.template_type,
+            )
+            if pair:
+                lut2 = build_disc_lookup_table(
+                    qblock.buffer, locations, options.word_size,
+                    options.template_length, "optimal",
+                )
+        else:
+            lut = build_lookup_table(
+                qblock.buffer, locations, options.word_size,
+                options.lut_word_size,
+            )
 
     n_ctx = len(qblock.contexts)
     word_cutoffs = np.array(
@@ -276,21 +294,31 @@ def setup_batch(
     with slog.time("setup.batch_upload"):
         q_dev = torch.from_numpy(qbuf).to(dev)
         m16 = device_matrix16(options.reward, options.penalty)
-        positions = (
-            lut.positions if len(lut.positions) else np.zeros(1, np.int32)
-        )
+
+        def csr(t):
+            positions = (t.positions if len(t.positions)
+                         else np.zeros(1, np.int32))
+            return (torch.from_numpy(t.counts_offsets).to(dev),
+                    torch.from_numpy(positions).to(dev))
+
+        offsets, positions = csr(lut)
+        offsets2, positions2 = csr(lut2) if lut2 is not None else (None,
+                                                                   None)
         seed_dev = SeedingDeviceData(
             resident=resident,
             query_packed=pack_query(q_dev),
             query_nib=pack_query_nibbles(q_dev),
-            lut_offsets=torch.from_numpy(lut.counts_offsets).to(dev),
-            lut_positions=torch.from_numpy(positions).to(dev),
+            lut_offsets=offsets,
+            lut_positions=positions,
             table64=torch.from_numpy(make_table64(m16)).to(dev),
             qbytes=query_bytes(q_dev),
             table256=torch.from_numpy(table256.astype(np.int32)).to(dev),
             ctx_tables=torch.from_numpy(np.stack(
                 [word_cutoffs, reduced, x_dropoffs]).astype(np.int32)
             ).to(dev),
+            window=options.window_size,
+            lut2_offsets=offsets2,
+            lut2_positions=positions2,
         )
     seed_kw = dict(
         word_size=lut.word_size,
@@ -298,6 +326,8 @@ def setup_batch(
         scan_step=lut.scan_step,
         context_offsets=ctx_offsets,
         x_dropoffs=x_dropoffs,
+        disc_offsets=lut.disc_offsets,
+        disc_offsets2=lut2.disc_offsets if lut2 is not None else None,
     )
     oracle_kw = dict(word_cutoffs=word_cutoffs, subject_starts=db.starts,
                      approx_ctx=approx_ctx)
@@ -521,8 +551,9 @@ def search(
     device: str | torch.device = "cuda",
     interrupt_fn=None,
 ) -> BlastResults:
-    """Run a complete megablast or blastn search end to end on ``device``
-    ("cuda" or "cpu"; "cuda" without a card raises)."""
+    """Run a complete nucleotide search (megablast, blastn, blastn-short,
+    vecscreen, dc-megablast) end to end on ``device`` ("cuda" or "cpu";
+    "cuda" without a card raises)."""
     return finish_search(
         prelim_search(records, db, options, device, interrupt_fn),
         db, options, interrupt_fn,

@@ -1,13 +1,16 @@
-"""Host orchestration of the device seeding stage (one-hit seeding).
+"""Host orchestration of the device seeding stage (one-hit and two-hit
+seeding, contiguous and discontiguous templates).
 
 The port's counterpart of ``gblastn_tpu/engine/seeding.py`` on the main
-path: scan + mini-extension on the device (ops.seeding), K1 on every
-mini-extension survivor (ops.ungapped), then the device finish
-(``_dev_replay_pack`` without its caps and fallbacks): the
-approximate-ungapped gate G and the one-hit diagonal replay R
-(ops.replay), reproducing ``s_BlastnDiagTableExtendInitialHit`` (NCBI
-na_ungapped.c:612-755) for window_size == 0, and one device-to-host fetch
-of the saved seeds only.
+path: scan + mini-extension on the device (ops.seeding; a discontiguous
+template's seeds skip the mini-extension, and with two templates both
+seed sets, template 1 first, go through one K1), K1 on every survivor
+(ops.ungapped), then the device finish (``_dev_replay_pack`` without its
+caps and fallbacks): with two-hit seeding the double-word probe RR where
+the ``rr_zero`` rule allows it, the approximate-ungapped gate G and the
+diagonal replay R (ops.replay), reproducing
+``s_BlastnDiagTableExtendInitialHit`` (NCBI na_ungapped.c:612-755) with
+scan range 0, and one device-to-host fetch of the saved seeds only.
 
 Sizes are exact, so the JAX package's capacity buckets and retries have
 no counterpart here. K1 has no window and returns exact extensions, so
@@ -15,8 +18,11 @@ there is no phase-0 clamp and no phase-2 escalation either; G has no
 clamp, so every seed resolves and nothing falls back; R has no cap. All
 of these were exact in the JAX package, so removing them changes no
 result. ``_finish_init_hits`` is the host finish, kept as the oracle
-that the tests and chip_smoke.py hold the device finish to; no search
-runs through it.
+that the tests and chip_smoke.py hold the device finish to, with its
+host twins ``compute_right_runs``, ``one_hit_diag_filter`` and
+``two_hit_diag_filter``; no search runs through them. The JAX package's
+``two_hit_admission`` (a superset filter that shrinks K1's TPU lane
+work) has no counterpart: it changes no result.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from gblastn_tpu_torch.ops.replay import (
     check_gate_flags,
     diag_replay,
     replay_keys,
+    right_run,
 )
-from gblastn_tpu_torch.ops.seeding import seeding_scan_mini
+from gblastn_tpu_torch.ops.seeding import scan_span, seeding_scan_mini
 from gblastn_tpu_torch.ops.ungapped import (
     FLAG_RANGE,
     check_flags,
@@ -74,6 +81,9 @@ class SeedingDeviceData:
     table256: torch.Tensor       # int32[256] G's packed XOR score table
     ctx_tables: torch.Tensor     # int32[3, n_ctx] word cutoff, reduced
                                  # cutoff, x_drop per context
+    window: int = 0              # two-hit window (0: one-hit)
+    lut2_offsets: torch.Tensor | None = None    # the second template's
+    lut2_positions: torch.Tensor | None = None  # CSR (coding_and_optimal)
 
 
 def sort_by_score_order(
@@ -219,6 +229,115 @@ def one_hit_diag_filter(
     return saved
 
 
+def compute_right_runs(
+    query: np.ndarray,       # uint8[Q] BLASTNA with sentinels
+    subject2: np.ndarray,    # int8[S] 2-bit codes
+    valid: np.ndarray,       # bool[S]
+    q_off: np.ndarray,
+    s_off: np.ndarray,
+    word_size: int,
+) -> np.ndarray:
+    """Exact-match run length to the right of each seed's word end,
+    capped at word_size (the double-word probe of s_TypeOfWord,
+    na_ungapped.c:559-586; equality there is checked through lookup
+    membership, which reduces to base equality for unmasked seeds).
+    Sentinels in the query (code 15) and subject padding stop the run,
+    which enforces the reference's context/range bounds ext_max."""
+    n = len(q_off)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    W = word_size
+    k = np.arange(W)
+    qi = np.minimum(q_off.astype(np.int64)[:, None] + W + k,
+                    len(query) - 1)
+    si = np.minimum(s_off.astype(np.int64)[:, None] + W + k,
+                    len(subject2) - 1)
+    match = (
+        (query[qi] == subject2[si].astype(np.uint8))
+        & (query[qi] < 4)
+        & valid[si]
+        & (q_off[:, None] + W + k < len(query))
+        & (s_off[:, None] + W + k < len(subject2))
+    )
+    return np.cumprod(match, axis=1).sum(axis=1).astype(np.int32)
+
+
+def two_hit_diag_filter(
+    q_off: np.ndarray,
+    s_off: np.ndarray,
+    oid: np.ndarray,
+    word_size: int,
+    window: int,
+    ung_s_start: np.ndarray,
+    ung_length: np.ndarray,
+    ung_score: np.ndarray,
+    cutoff: np.ndarray,
+    right_run: np.ndarray,
+    use_native: bool = True,
+    diag_mask: int = 0,
+) -> np.ndarray:
+    """Two-hit per-diagonal replay for window_size > 0
+    (s_BlastnDiagTableExtendInitialHit, na_ungapped.c:612-755 with the
+    default scan_range 0, so the off-diagonal probe is skipped).
+
+    Per (oid, diag) state: last_hit = right end of the last hit seen,
+    hit_saved flag. A hit is extended when it is the second hit within
+    ``window`` of a pending first hit, or when it is itself a double
+    word (exact run >= 2 * word_size, via ``right_run``).
+    """
+    n = len(q_off)
+    saved = np.zeros(n, dtype=bool)
+    if n == 0:
+        return saved
+    if use_native:
+        order = _native_diag_order(q_off, s_off, oid, diag_mask)
+        if order is not None:
+            native = _native_diag_filter(
+                q_off, s_off, oid, order, word_size, window,
+                ung_s_start, ung_length, ung_score, cutoff, right_run,
+                diag_mask,
+            )
+            if native is not None:
+                return native
+    diag = s_off.astype(np.int64) - q_off.astype(np.int64)
+    if diag_mask:
+        diag = diag & diag_mask
+    order = np.lexsort((q_off, s_off, diag, oid))
+    last_key = None
+    last_hit = 0
+    flag = 0
+    for i in order:
+        key = (int(oid[i]), int(diag[i]))
+        if key != last_key:
+            last_key = key
+            # virgin diagonal: last_hit = -window (s_BlastDiagClear,
+            # blast_extend.c:108), so the first hit always takes the
+            # first-hit branch even when s_end <= window
+            last_hit = -window
+            flag = 0
+        s = int(s_off[i])
+        s_end = s + word_size
+        if s < last_hit:
+            continue
+        if flag or s_end > last_hit + window:
+            # first hit (or follows a saved hit): record it unless the
+            # word itself extends to a double word
+            ext = int(right_run[i])
+            s_end += ext
+            hit_ready = ext >= word_size
+        else:
+            hit_ready = True
+        if hit_ready:
+            if ung_score[i] >= cutoff[i]:
+                saved[i] = True
+                s_end = int(ung_s_start[i]) + int(ung_length[i])
+            else:
+                hit_ready = False
+        last_hit = s_end
+        flag = 1 if hit_ready else 0
+    return saved
+
+
 def ungapped_inputs(
     dev: SeedingDeviceData,
     *,
@@ -227,39 +346,64 @@ def ungapped_inputs(
     scan_step: int,
     context_offsets: np.ndarray,    # int32[n_ctx+1]
     x_dropoffs: np.ndarray,         # int32[n_ctx] per-context raw X-drop
+    disc_offsets: tuple[int, ...] | None = None,   # discontiguous template
+    disc_offsets2: tuple[int, ...] | None = None,  # the second one, with
+                                                   # dev.lut2_*
 ):
     """Scan + mini-extension on the device. Returns (ctx, k1_args,
     n_raw): the survivors' contexts, the argument tuple of
-    ``ungapped_extend_window`` for them, and the raw seed count."""
+    ``ungapped_extend_window`` for them, and the raw seed count. With two
+    templates, both tables are scanned and their seeds concatenated,
+    template 1 first, as ``merge_two_template_raw`` merges them in the
+    JAX package (the replay's stable order then breaks ties by index as
+    the host does)."""
     res = dev.resident
     n_ctx = len(x_dropoffs)
-    n_scan = max((res.length - lut_word) // scan_step + 1, 1)
+    n_scan = max(
+        (res.length - scan_span(lut_word, disc_offsets)) // scan_step + 1, 1)
     device = res.device
-    (qs, ss, ctx, xd, max_l, max_r, n_raw) = seeding_scan_mini(
-        res.subject2, res.valid, dev.lut_offsets, dev.lut_positions,
-        dev.query_nib, res.subject_w,
-        torch.from_numpy(
-            np.asarray(context_offsets[: n_ctx + 1], np.int64)
-        ).to(device),
-        torch.from_numpy(np.asarray(x_dropoffs, np.int32)).to(device),
-        res.starts, res.ends,
-        query_len=int(dev.query_packed.shape[0]),
-        scan_step=scan_step, lut_word=lut_word, word_size=word_size,
-        n_scan=n_scan,
-    )
+    ctx_off = torch.from_numpy(
+        np.asarray(context_offsets[: n_ctx + 1], np.int64)).to(device)
+    xdrop = torch.from_numpy(np.asarray(x_dropoffs, np.int32)).to(device)
+    tables = [(dev.lut_offsets, dev.lut_positions, disc_offsets)]
+    if disc_offsets2:
+        tables.append((dev.lut2_offsets, dev.lut2_positions, disc_offsets2))
+    parts = [seeding_scan_mini(
+        res.subject2, res.valid, offsets, positions, dev.query_nib,
+        res.subject_w, ctx_off, xdrop, res.starts, res.ends,
+        query_len=int(dev.query_packed.shape[0]), scan_step=scan_step,
+        lut_word=lut_word, word_size=word_size, n_scan=n_scan,
+        disc_offsets=disc) for offsets, positions, disc in tables]
+    if len(parts) == 1:
+        qs, ss, ctx, xd, max_l, max_r, n_raw = parts[0]
+    else:
+        qs, ss, ctx, xd, max_l, max_r = (torch.cat(c) for c in zip(
+            *(p[:6] for p in parts)))
+        n_raw = sum(p[6] for p in parts)
     k1_args = (dev.query_packed, res.subject2, dev.table64,
                qs.to(torch.int32), ss.to(torch.int32), xd, max_l, max_r)
     return ctx, k1_args, n_raw
+
+
+def probes_double_words(dev: SeedingDeviceData, scan_kw: dict) -> bool:
+    """Whether the finish runs RR: two-hit seeding with a word longer
+    than the lookup word of a contiguous template. Otherwise the runs are
+    0 by definition (the ``rr_zero`` rule: s_TypeOfWord makes no probe
+    when word_length == lut_word_length, na_ungapped.c:512, and a
+    discontiguous template's word is its whole window)."""
+    return (dev.window > 0 and scan_kw["lut_word"] < scan_kw["word_size"]
+            and not scan_kw.get("disc_offsets"))
 
 
 def run_seeding(
     dev: SeedingDeviceData,
     **scan_kw,                      # ungapped_inputs keywords
 ) -> InitHits:
-    """One-hit seeding pass over the resident database: scan + mini and
-    K1 on the device, the device finish (G, R), one fetch of the saved
-    seeds. A seed that K1 or G flagged out of range raises ValueError at
-    the fetch, before a row is used."""
+    """Seeding pass over the resident database: scan + mini and K1 on
+    the device, the device finish (RR where it probes, G, R; one-hit or
+    two-hit by ``dev.window``), one fetch of the saved seeds. A seed that
+    K1 or G flagged out of range raises ValueError at the fetch, before a
+    row is used."""
     with slog.time("device.seeding.pipeline"):
         ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
         ung = ungapped_extend_window(*k1_args)
@@ -269,13 +413,8 @@ def run_seeding(
     if n == 0:
         z = np.zeros(0, dtype=np.int32)
         return InitHits(z, z, z, z, z, z, z, z)
-    n_ctx = dev.ctx_tables.shape[1]
-    concat_end = int(scan_kw["context_offsets"][n_ctx]) - 1
-    word_size = scan_kw["word_size"]
     with slog.time("device.seeding.finish"):
-        rows, head, keep = device_finish(
-            dev, k1_args, ctx, ung, word_size=word_size,
-            concat_end=concat_end)
+        rows, head, keep = device_finish(dev, k1_args, ctx, ung, scan_kw)
     with slog.time("device.seeding.fetch"):
         out = torch.cat([head, rows[:, keep].reshape(-1)]).cpu().numpy()
     slog.add_value("seeding.fetch_bytes", out.nbytes)
@@ -311,42 +450,63 @@ def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
     score, cutoff) for the seeds of ``g_args`` (``gate_inputs``) and their
     extension ``rows`` (q_start, s_start, length, score) after the gate:
     subject-local coordinates, the keys sorted by ``replay_keys`` with the
-    diagonal mask of the batch's concatenated query length."""
+    diagonal mask of the batch's concatenated query length and window."""
     qs, ss, ctx32, oid32 = g_args[6:10]
     _uq, us, ulen, usc = rows
     base = dev.resident.starts[oid32.long()]
     s_loc = (ss - base).to(torch.int32)
     end_loc = (us - base + ulen).to(torch.int32)
     key, order = replay_keys(qs, s_loc, oid32,
-                             diag_table_mask(concat_end - 1, 0))
+                             diag_table_mask(concat_end - 1, dev.window))
     return (key, order, s_loc, end_loc, usc,
             dev.ctx_tables[0][ctx32.long()])
 
 
-def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, *,
-                  word_size: int, concat_end: int):
-    """G and R over K1's outputs on the seeds' device. Returns (rows,
-    head, keep): int32[8, n] rows (q_off, s_off, ctx, q_start, s_start,
+def run_inputs(dev: SeedingDeviceData, k1_args, g_args,
+               scan_kw: dict) -> tuple | None:
+    """The arguments of ``right_run`` for K1's seeds: the batch's query
+    nibbles, the resident subject words and subject ends, then int32
+    q_off, s_off and oid (``gate_inputs``'); None where the finish runs
+    no RR (``probes_double_words``: the runs are then 0)."""
+    if not probes_double_words(dev, scan_kw):
+        return None
+    res = dev.resident
+    return (dev.query_nib, res.subject_w, res.ends, k1_args[3], k1_args[4],
+            g_args[9])
+
+
+def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
+    """RR, G and R over K1's outputs on the seeds' device, for the scan
+    keywords ``scan_kw`` (``ungapped_inputs``'). Returns (rows, head,
+    keep): int32[8, n] rows (q_off, s_off, ctx, q_start, s_start,
     length, score, oid; the extension after G), an int32[3] head (gated
     seeds, K1's and G's FLAG_RANGE if any seed carries it, else 0) and
     the indices of the saved seeds in ascending order. ``keep`` comes from
     ``torch.nonzero``, the one wait on the card; nothing before it
-    waits. G runs for word sizes of 11 and up, as the reference scores
-    approximately first only there."""
+    waits. RR runs where ``run_inputs`` gives its arguments, and its runs
+    feed G and the two-hit R; G runs for word sizes of 11 and up, as the
+    reference scores approximately first only there; R is two-hit when
+    ``dev.window`` > 0."""
+    word_size = scan_kw["word_size"]
+    concat_end = int(scan_kw["context_offsets"][dev.ctx_tables.shape[1]]) - 1
     g_args = gate_inputs(dev, k1_args, ctx, ung)
+    rr_args = run_inputs(dev, k1_args, g_args, scan_kw)
+    runs = (None if rr_args is None
+            else right_run(*rr_args, word_size=word_size))
     rows = ung[:4]
     n_need = torch.zeros((), dtype=torch.int32, device=ung[4].device)
     head = [n_need, (ung[4] & FLAG_RANGE).amax()]
     if word_size >= 11:
         *rows, g_flags = approx_gate(*g_args, word_size=word_size,
-                                     concat_end=concat_end)
+                                     concat_end=concat_end, right_run=runs)
         head[0] = (g_flags & FLAG_NEED).sum().to(torch.int32)
         head.append((g_flags & GATE_FLAG_RANGE).amax())
     else:
         head.append(n_need)
     saved = diag_replay(*replay_inputs(dev, g_args, rows,
                                        concat_end=concat_end),
-                        word_size=word_size)
+                        word_size=word_size, window=dev.window,
+                        right_run=runs)
     rows = torch.stack([*g_args[6:8], g_args[8], *rows, g_args[9]])
     keep = torch.nonzero(saved).squeeze(1)
     return rows, torch.stack(head), keep
@@ -357,9 +517,10 @@ def _finish_init_hits(
     word_cutoffs, subject_starts, word_size,
     concat_qlen: int = 1 << 30,   # > 8000 -> exact (hash) diagonals
     approx_ctx: dict | None = None,   # approximate-ungapped gate data
+    window_size: int = 0, right_run=None,   # two-hit window and runs
 ) -> InitHits:
-    """Host finishing: per-context cutoffs, oid mapping, the one-hit
-    diagonal replay, final score ordering.
+    """Host finishing: per-context cutoffs, oid mapping, the one- or
+    two-hit diagonal replay (scan range 0), final score ordering.
 
     The replay runs in subject-local int32 coordinates (diagonal state
     is keyed per (oid, diag), and shifting s_off and ung_s_start by the
@@ -408,7 +569,9 @@ def _finish_init_hits(
                     approx_ctx["table"], need,
                 )
             if demote.any():
-                sme = np.asarray(s_np, np.int64) + word_size
+                ext = (right_run.astype(np.int64)
+                       if right_run is not None else 0)
+                sme = np.asarray(s_np, np.int64) + word_size + ext
                 ug_q = np.asarray(ug_q).copy()
                 ug_s = np.asarray(ug_s).copy()
                 ug_len = np.asarray(ug_len).copy()
@@ -424,12 +587,21 @@ def _finish_init_hits(
                 len32 = ug_len.astype(np.int32)
                 score32 = ug_score.astype(np.int32)
 
-    dmask = diag_table_mask(concat_qlen, 0)
+    dmask = diag_table_mask(concat_qlen, window_size)
     with slog.time("host.diag_filter"):
-        saved = one_hit_diag_filter(
-            q32, s_loc, oid, word_size, ug_s_loc, len32, score32,
-            cutoff, diag_mask=dmask,
-        )
+        if window_size > 0:
+            saved = two_hit_diag_filter(
+                q32, s_loc, oid, word_size, window_size,
+                ug_s_loc, len32, score32, cutoff,
+                right_run if right_run is not None
+                else np.zeros(len(q_np), np.int32),
+                diag_mask=dmask,
+            )
+        else:
+            saved = one_hit_diag_filter(
+                q32, s_loc, oid, word_size, ug_s_loc, len32, score32,
+                cutoff, diag_mask=dmask,
+            )
     keep = np.nonzero(saved)[0]
     order = sort_by_score_order(
         ug_score[keep], ug_s[keep], ug_len[keep], ug_q[keep]

@@ -145,7 +145,7 @@ def load():
         fn.argtypes = (
             [ctypes.c_void_p] * 6        # qbytes, packed, table256,
                                          # ctx_tables, sub_starts, sub_ends
-            + [ctypes.c_void_p] * 8      # q_off .. ug_score
+            + [ctypes.c_void_p] * 9      # q_off .. ug_score, right_run
             + [ctypes.c_int] * 7         # QB, P, n_ctx, n_sub, n, word,
                                          # concat_end
             + [ctypes.c_void_p] * 5      # five outputs
@@ -154,10 +154,18 @@ def load():
         fn = lib.gblastn_diag_replay             # R
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 6        # key, order, s_loc, end_loc,
-                                         # score, cutoff
-            + [ctypes.c_int] * 2         # n, word
+            [ctypes.c_void_p] * 7        # key, order, s_loc, end_loc,
+                                         # score, cutoff, right_run
+            + [ctypes.c_int] * 3         # n, word, window
             + [ctypes.c_void_p] * 2      # saved, stream
+        )
+        fn = lib.gblastn_right_run               # RR
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 6        # query_nib, subject_w, sub_ends,
+                                         # q_off, s_off, oid
+            + [ctypes.c_int] * 5         # Q8, S16, n_sub, n, word
+            + [ctypes.c_void_p] * 2      # out, stream
         )
         _lib = lib
     return _lib

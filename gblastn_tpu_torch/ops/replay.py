@@ -1,13 +1,23 @@
-"""The device finish of one-hit seeding: the approximate-ungapped gate (G)
-and the per-diagonal one-hit replay (R), wrappers and plain versions.
+"""The device finish of seeding: the double-word probe (RR), the
+approximate-ungapped gate (G) and the per-diagonal replay (R), one-hit
+and two-hit, wrappers and plain versions.
 
-The port's counterpart of ``approx_gate_device`` and
-``diag_replay_device`` (``window == 0``) in ``gblastn_tpu/ops/seeding.py``.
-The kernels are ``csrc/approx_gate.cu`` and ``csrc/diag_replay.cu``;
-``approx_gate_ref`` and ``diag_replay_ref`` are their plain PyTorch
-versions with the same semantics. Each wrapper dispatches on where the
-tensors live: CPU tensors go to the plain version, CUDA tensors to the
-kernel (or an exception). There is no fallback between the two.
+The port's counterpart of ``right_run_packed``, ``approx_gate_device``
+and ``diag_replay_device`` in ``gblastn_tpu/ops/seeding.py``. The kernels
+are ``csrc/right_run.cu``, ``csrc/approx_gate.cu`` and
+``csrc/diag_replay.cu``; ``right_run_ref``, ``approx_gate_ref`` and
+``diag_replay_ref`` are their plain PyTorch versions with the same
+semantics. Each wrapper dispatches on where the tensors live: CPU tensors
+go to the plain version, CUDA tensors to the kernel (or an exception).
+There is no fallback between the two.
+
+RR (``engine/seeding.py::compute_right_runs``; NCBI s_TypeOfWord,
+na_ungapped.c:559-586): the exact-match run to the right of each seed's
+word end, capped at the word size, read off the packed query nibbles and
+subject words; a query nibble equal to ``1 << code`` is an unambiguous
+equal base, and a sentinel, the query's end or the owning subject's end
+stops the run. Two-hit seeding only, and only where the word is longer
+than the lookup word of a contiguous template (the ``rr_zero`` rule).
 
 G (s_NuclUngappedExtend, NCBI na_ungapped.c:263; host twin
 ``engine/approx.py::approx_ungapped_one``, unclamped): for every seed
@@ -19,19 +29,32 @@ seed whose approximate score misses the reduced cutoff is demoted: its
 rows become the approximate extension, as ``_finish_init_hits`` writes
 them. Every seed resolves: there is no clamp and no fallback.
 
-R (``engine/seeding.py::one_hit_diag_filter``; NCBI
-s_BlastnDiagTableExtendInitialHit, na_ungapped.c:612-755, window 0):
-seeds ordered by (oid, masked diagonal, s, q, index); per (oid, masked
-diagonal) a seed starting before ``last_hit`` is skipped, a seed scoring
-at least its cutoff is saved and moves ``last_hit`` to the end of its
-extension, any other moves it to ``s + word``.
+A seed's demoted length counts from ``s + word + right_run``, the end of
+its word and double word.
+
+R (``engine/seeding.py::one_hit_diag_filter`` and
+``two_hit_diag_filter``; NCBI s_BlastnDiagTableExtendInitialHit,
+na_ungapped.c:612-755, scan range 0): seeds ordered by (oid, masked
+diagonal, s, q, index); per (oid, masked diagonal) a seed starting
+before ``last_hit`` is skipped. One-hit (window 0): a seed scoring at
+least its cutoff is saved and moves ``last_hit`` to the end of its
+extension, any other moves it to ``s + word``. Two-hit (window > 0):
+the state is (last_hit, flag), a virgin diagonal starts at (-window,
+0); a seed takes the first-hit branch when the flag is set or when
+``s + word > last_hit + window``, and there its word end gains its right
+run and it is ready only as a double word (run >= word); elsewhere (the
+second hit within the window) it is ready. A ready seed scoring at least
+its cutoff is saved and moves ``last_hit`` to its extension's end; any
+other moves it to its word end. The flag is whether the seed was saved.
 
 The kernels check their inputs per seed, so a launch waits on nothing: G
 marks a seed whose walk would read outside the query or the packed
 subject, or whose context or subject index is out of range, with
 FLAG_RANGE (no walk; the exact rows stay); ``check_gate_flags`` raises
 ValueError where the caller fetches the flags. R's inputs are the sort's
-own, so it has nothing to check.
+own, so it has nothing to check; RR reads only inside the query and the
+owning subject, and a seed whose subject index is out of range has a run
+of 0.
 """
 from __future__ import annotations
 
@@ -66,6 +89,39 @@ def query_bytes(query: torch.Tensor) -> torch.Tensor:
         return torch.zeros(0, dtype=torch.uint8, device=query.device)
     return (((q[:-3] << 6) | (q[1:-2] << 4) | (q[2:-1] << 2) | q[3:])
             & 0xFF).to(torch.uint8)
+
+
+def right_run_ref(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
+                  word_size: int):
+    """Plain PyTorch version of RR (same arguments and result as
+    ``right_run``): int32[n] runs, each the count of leading positions d
+    < word_size at which the query nibble at q_off + word_size + d is
+    ``1 << code`` of the subject code at s_off + word_size + d, both
+    positions inside their arrays and the subject one before its owning
+    subject's end."""
+    from gblastn_tpu_torch.ops.seeding import _codes
+
+    W = word_size
+    n = q_off.numel()
+    dev = q_off.device
+    if n == 0 or W <= 0:
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+    q = q_off.long() + W
+    s = s_off.long() + W
+    o = oid.long()
+    n_sub = sub_ends.numel()
+    ok = (o >= 0) & (o < n_sub)
+    hi = torch.where(ok, sub_ends.long()[o.clamp(0, max(n_sub - 1, 0))], 0)
+    hi = hi.clamp(max=subject_w.numel() * 16)
+    qmask = _codes(query_nib, q, 8, 4, W)
+    scode = _codes(subject_w, s, 16, 2, W)
+    d = torch.arange(W, dtype=torch.int64, device=dev)
+    qi, si = q[:, None] + d, s[:, None] + d
+    inb = ((qi >= 0) & (qi < query_nib.numel() * 8) & (si >= 0)
+           & (si < hi[:, None]))
+    match = inb & (qmask == (torch.ones_like(scode) << scode))
+    return torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(
+        torch.int32)
 
 
 def _reset_walk_ref(qbytes, packed, table, q0, qstep, s0, sstep, n_steps,
@@ -127,7 +183,7 @@ def _reset_walk_ref(qbytes, packed, table, q0, qstep, s0, sstep, n_steps,
 def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
                     sub_ends, q_off, s_off, ctx, oid, ug_q, ug_s, ug_len,
                     ug_score, *, word_size: int, concat_end: int,
-                    return_steps: bool = False):
+                    right_run=None, return_steps: bool = False):
     """Plain PyTorch version of G (same arguments and results as
     ``approx_gate``). With ``return_steps`` it also returns the byte-steps
     each seed's walks took (int64[n], left + right): the work count
@@ -179,7 +235,10 @@ def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
     a_q = qe - 4 * l_pos + 1
     a_s = se - 4 * l_pos + st[walk]
     a_r = torch.where(r_pos > 0, qe + 4 * r_pos - 1, qe) + 1
-    a_len = torch.maximum(s[walk] + word_size - a_s, a_r - a_q + 1)
+    word_end = s[walk] + word_size
+    if right_run is not None:
+        word_end = word_end + right_run.long()[walk]
+    a_len = torch.maximum(word_end - a_s, a_r - a_q + 1)
     outs = [t.to(i64).clone() for t in (ug_q, ug_s, ug_len, ug_score)]
     d = walk[dem]
     for out, a in zip(outs, (a_q, a_s, a_len, a_score)):
@@ -212,7 +271,7 @@ def replay_keys(q_off, s_loc, oid, diag_mask: int):
 
 
 def diag_replay_ref(key, order, s_loc, end_loc, score, cutoff, *,
-                    word_size: int):
+                    word_size: int, window: int = 0, right_run=None):
     """Plain PyTorch version of R (same arguments and result as
     ``diag_replay``), by state jumping: every segment (a run of equal
     keys) holds its current seed, which the machine processes (it is
@@ -223,23 +282,37 @@ def diag_replay_ref(key, order, s_loc, end_loc, score, cutoff, *,
     dev = key.device
     saved_sorted = torch.zeros(n, dtype=torch.bool, device=dev)
     if n:
+        W = word_size
         s = s_loc.long()[order]
         passed = score[order] >= cutoff[order]
-        nxt_last = torch.where(passed, end_loc.long()[order],
-                               s + word_size)
+        end = end_loc.long()[order]
+        run = (right_run.long()[order] if right_run is not None and window
+               else torch.zeros_like(s))
         head = torch.ones(n, dtype=torch.bool, device=dev)
         head[1:] = key[1:] != key[:-1]
         seg = torch.cumsum(head, 0) - 1
         comb = (seg << 32) + s
         cur = torch.nonzero(head).squeeze(1)
         ends = torch.cat([cur[1:], cur.new_full((1,), n)])
+        last = torch.full_like(cur, -window)     # per live segment
+        flag = torch.zeros_like(cur, dtype=torch.bool)
         while cur.numel():
-            p = passed[cur]
+            sc = s[cur]
+            word_end = sc + W
+            if window:
+                first = flag | (word_end > last + window)
+                word_end = torch.where(first, word_end + run[cur], word_end)
+                ready = ~first | (run[cur] >= W)
+                p = ready & passed[cur]
+            else:
+                p = passed[cur]
             saved_sorted[cur[p]] = True
-            nxt = torch.searchsorted(comb, (seg[cur] << 32) + nxt_last[cur])
+            last = torch.where(p, end[cur], word_end)
+            nxt = torch.searchsorted(comb, (seg[cur] << 32) + last)
             nxt = torch.maximum(nxt, cur + 1)
             alive = nxt < ends
             cur, ends = nxt[alive], ends[alive]
+            last, flag = last[alive], p[alive]
     saved = torch.zeros(n, dtype=torch.uint8, device=dev)
     saved[order] = saved_sorted.to(torch.uint8)
     return saved
@@ -264,6 +337,7 @@ def _bind():
 
         lib = _build.load()
         _lib_fns = (lib.gblastn_approx_gate, lib.gblastn_diag_replay,
+                    lib.gblastn_right_run,
                     torch._C._cuda_getCurrentRawStream,
                     torch._C._cuda_isCurrentStreamCapturing)
     return _lib_fns
@@ -281,7 +355,7 @@ def _launch(fn, dev, args, what):
 
 def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
                 q_off, s_off, ctx, oid, ug_q, ug_s, ug_len, ug_score, *,
-                word_size: int, concat_end: int):
+                word_size: int, concat_end: int, right_run=None):
     """G: the approximate-ungapped gate on every seed of K1's output.
 
     qbytes uint8[Q-3] (``query_bytes`` of the BLASTNA query buffer),
@@ -291,7 +365,9 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
     cutoff, reduced cutoff, x_drop per context), sub_starts and sub_ends
     int64[num_seqs], and int32[n] seeds: q_off (buffer), s_off (global),
     ctx, oid, and K1's q_start, s_start, length, score. ``concat_end`` is
-    one past the query buffer's last real base. Returns int32[n]
+    one past the query buffer's last real base; ``right_run`` (int32[n],
+    RR's, or None for runs of 0) extends a demoted seed's word end.
+    Returns int32[n]
     (q_start, s_start, length, score, flags): the rows with the demoted
     seeds' approximate extension substituted, and FLAG_NEED /
     FLAG_DEMOTE / FLAG_RANGE. CPU tensors run the plain version; CUDA
@@ -300,9 +376,10 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
     ``.captured`` while a graph captures)."""
     seeds = (q_off, s_off, ctx, oid, ug_q, ug_s, ug_len, ug_score)
     tables = (qbytes, packed, table256, ctx_tables, sub_starts, sub_ends)
-    if all(t.device.type == "cpu" for t in tables + seeds):
+    runs = () if right_run is None else (right_run,)
+    if all(t.device.type == "cpu" for t in tables + seeds + runs):
         return approx_gate_ref(*tables, *seeds, word_size=word_size,
-                               concat_end=concat_end)
+                               concat_end=concat_end, right_run=right_run)
     dev = q_off.device
     if dev.type != "cuda":
         raise ValueError(f"approx_gate: no kernel for {dev}")
@@ -313,10 +390,12 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
         ("ctx_tables", ctx_tables, torch.int32),
         ("sub_starts", sub_starts, torch.int64),
         ("sub_ends", sub_ends, torch.int64),
-    ] + [(f"seed array {k}", t, torch.int32) for k, t in enumerate(seeds)])
+    ] + [(f"seed array {k}", t, torch.int32) for k, t in
+         enumerate(seeds + runs)])
     if (table256.numel() != 256 or ctx_tables.dim() != 2
             or ctx_tables.shape[0] != 3 or sub_ends.numel()
-            != sub_starts.numel() or any(t.numel() != n for t in seeds)):
+            != sub_starts.numel()
+            or any(t.numel() != n for t in seeds + runs)):
         raise ValueError("approx_gate: table or seed array of the wrong "
                          "shape")
     if max(qbytes.numel() + 3, packed.numel(), n) >= 2**31:
@@ -324,8 +403,9 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
     outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
     if n == 0:
         return outs
-    fn, _r, raw_stream, capturing = _lib_fns or _bind()
+    fn, _r, _rr, raw_stream, capturing = _lib_fns or _bind()
     args = (*(t.data_ptr() for t in tables), *(t.data_ptr() for t in seeds),
+            right_run.data_ptr() if runs else None,
             qbytes.numel(), packed.numel(), ctx_tables.shape[1],
             sub_starts.numel(), n, word_size, concat_end,
             *(o.data_ptr() for o in outs), raw_stream(dev.index))
@@ -342,20 +422,24 @@ approx_gate.captured = 0
 
 
 def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
-                word_size: int):
-    """R: the one-hit replay over seeds in replay order.
+                word_size: int, window: int = 0, right_run=None):
+    """R: the one-hit (``window`` 0) or two-hit replay over seeds in
+    replay order.
 
     key and order int64[n] from ``replay_keys``; int32[n] per seed (in
     the original order): s_loc (subject-local seed start), end_loc (the
     subject-local end of its ungapped extension, after G), score (after
-    G) and cutoff. Returns uint8[n] saved, in the original order. CPU
-    tensors run the plain version; CUDA tensors launch the kernel (a
-    segment a thread, at its head; long skips searched for) on the
-    current stream without waiting on the card. Launches count in ``diag_replay.launches`` (in
-    ``.captured`` while a graph captures)."""
+    G) and cutoff; for two-hit, ``right_run`` (RR's, or None for runs of
+    0; one-hit ignores it). Returns uint8[n] saved, in the original
+    order. CPU tensors run the plain version; CUDA tensors launch the
+    kernel (a segment a thread, at its head; long skips searched for) on
+    the current stream without waiting on the card. Launches count in
+    ``diag_replay.launches`` (in ``.captured`` while a graph captures)."""
     tensors = (key, order, s_loc, end_loc, score, cutoff)
-    if all(t.device.type == "cpu" for t in tensors):
-        return diag_replay_ref(*tensors, word_size=word_size)
+    runs = () if right_run is None or not window else (right_run,)
+    if all(t.device.type == "cpu" for t in tensors + runs):
+        return diag_replay_ref(*tensors, word_size=word_size, window=window,
+                               right_run=right_run)
     dev = key.device
     if dev.type != "cuda":
         raise ValueError(f"diag_replay: no kernel for {dev}")
@@ -363,15 +447,19 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     _check_args("diag_replay", dev, [
         ("key", key, torch.int64), ("order", order, torch.int64),
         ("s_loc", s_loc, torch.int32), ("end_loc", end_loc, torch.int32),
-        ("score", score, torch.int32), ("cutoff", cutoff, torch.int32)])
-    if any(t.numel() != n for t in tensors) or n >= 2**31:
+        ("score", score, torch.int32), ("cutoff", cutoff, torch.int32)]
+        + [("right_run", t, torch.int32) for t in runs])
+    if any(t.numel() != n for t in tensors + runs) or n >= 2**31:
         raise ValueError("diag_replay: arrays of different lengths, or "
                          "too many seeds for one launch")
+    if not 0 <= window < 2**30:
+        raise ValueError(f"diag_replay: window {window} out of range")
     saved = torch.zeros(n, dtype=torch.uint8, device=dev)   # R writes 1s
     if n == 0:
         return saved
-    _g, fn, raw_stream, capturing = _lib_fns or _bind()
-    args = (*(t.data_ptr() for t in tensors), n, word_size,
+    _g, fn, _rr, raw_stream, capturing = _lib_fns or _bind()
+    args = (*(t.data_ptr() for t in tensors),
+            right_run.data_ptr() if runs else None, n, word_size, window,
             saved.data_ptr(), raw_stream(dev.index))
     _launch(fn, dev, args, "diag_replay")
     if capturing():
@@ -383,3 +471,54 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
 
 diag_replay.launches = 0
 diag_replay.captured = 0
+
+
+def right_run(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
+              word_size: int):
+    """RR: the double-word probe on every seed.
+
+    query_nib int64[Q/8] (``ops.seeding.pack_query_nibbles``: eight
+    4na-mask nibbles a word), subject_w int64[S/16] (the resident
+    ``subject_w``: sixteen 2-bit codes a word), sub_ends int64[num_seqs]
+    (each subject's end), and int32[n] seeds: q_off (buffer), s_off
+    (global) and oid (the owning subject). Returns int32[n] runs, each
+    at most ``word_size``. CPU tensors run the plain version; CUDA
+    tensors launch the kernel (a thread a seed) on the current stream
+    without waiting on the card. Launches count in
+    ``right_run.launches`` (in ``.captured`` while a graph captures)."""
+    tables = (query_nib, subject_w, sub_ends)
+    seeds = (q_off, s_off, oid)
+    if all(t.device.type == "cpu" for t in tables + seeds):
+        return right_run_ref(*tables, *seeds, word_size=word_size)
+    dev = q_off.device
+    if dev.type != "cuda":
+        raise ValueError(f"right_run: no kernel for {dev}")
+    n = q_off.numel()
+    _check_args("right_run", dev, [
+        ("query_nib", query_nib, torch.int64),
+        ("subject_w", subject_w, torch.int64),
+        ("sub_ends", sub_ends, torch.int64)]
+        + [(f"seed array {k}", t, torch.int32) for k, t in enumerate(seeds)])
+    if any(t.numel() != n for t in seeds):
+        raise ValueError("right_run: seed arrays of different lengths")
+    if not 0 <= word_size <= 64 or max(query_nib.numel() * 8,
+                                       subject_w.numel() * 16, n) >= 2**31:
+        raise ValueError("right_run: word size outside [0, 64], or too "
+                         "long for 32-bit offsets")
+    run = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return run
+    _g, _r, fn, raw_stream, capturing = _lib_fns or _bind()
+    args = (*(t.data_ptr() for t in tables), *(t.data_ptr() for t in seeds),
+            query_nib.numel(), subject_w.numel(), sub_ends.numel(), n,
+            word_size, run.data_ptr(), raw_stream(dev.index))
+    _launch(fn, dev, args, "right_run")
+    if capturing():
+        right_run.captured += 1
+    else:
+        right_run.launches += 1
+    return run
+
+
+right_run.launches = 0
+right_run.captured = 0

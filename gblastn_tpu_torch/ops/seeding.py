@@ -80,20 +80,33 @@ def _presence_hits(words, valid_word, lut_offsets):
     return valid_word & (((pv[words >> 5] >> (words & 31)) & 1) == 1)
 
 
+def scan_span(lut_word: int, disc_offsets=None) -> int:
+    """The bases a scan word reads: ``lut_word`` consecutive ones, or a
+    discontiguous template's whole window."""
+    return disc_offsets[-1] + 1 if disc_offsets else lut_word
+
+
 def scan_block(subject2, subject_valid, lut_offsets, lut_positions, *,
-               scan_step: int, lut_word: int, n_scan: int):
+               scan_step: int, lut_word: int, n_scan: int,
+               disc_offsets=None):
     """Scan the subject at stride positions and resolve CSR seeds.
 
     Word codes are taken at positions ``k * scan_step`` (k < n_scan) from
-    ``lut_word`` consecutive valid bases; positions whose word has a
-    chain fan out to every query offset of the chain. Returns int64
-    (q_off, s_off), ordered by scan position, then chain slot."""
+    ``lut_word`` consecutive valid bases, or with ``disc_offsets`` (a
+    discontiguous template) from the bases at those offsets of a window
+    that must be valid throughout (s_FillDiscMBTable resets on any
+    ambiguity, blast_nalookup.c:757); positions whose word has a chain
+    fan out to every query offset of the chain. Returns int64 (q_off,
+    s_off), ordered by scan position, then chain slot."""
     dev = subject2.device
+    offs = tuple(disc_offsets) if disc_offsets else tuple(range(lut_word))
+    w = len(offs)
     pos = torch.arange(n_scan, dtype=torch.int64, device=dev) * scan_step
     words = torch.zeros(n_scan, dtype=torch.int64, device=dev)
     valid_word = torch.ones(n_scan, dtype=torch.bool, device=dev)
-    for j in range(lut_word):
-        words += subject2[pos + j].to(torch.int64) << (2 * (lut_word - 1 - j))
+    for r, j in enumerate(offs):
+        words += subject2[pos + j].to(torch.int64) << (2 * (w - 1 - r))
+    for j in range(scan_span(lut_word, disc_offsets)):
         valid_word &= subject_valid[pos + j]
     words = torch.where(valid_word, words, 0)
     hit = _presence_hits(words, valid_word, lut_offsets)
@@ -197,28 +210,36 @@ def seeding_scan_mini(subject2, subject_valid, lut_offsets, lut_positions,
                       query_nib, subject_w, ctx_offsets, x_dropoffs,
                       subject_starts, subject_ends, *, query_len: int,
                       scan_step: int, lut_word: int, word_size: int,
-                      n_scan: int):
+                      n_scan: int, disc_offsets=None):
     """Scan -> mini-extension -> per-survivor context, X-drop and walk
     budgets (the inputs of K1).
 
     ``ctx_offsets`` int64[n_ctx+1] context starts in the query buffer;
-    ``x_dropoffs`` int32[n_ctx]. Returns (qs, ss, ctx, x_drop, max_l,
-    max_r, n_raw): int64 seed starts, then int32 kernel inputs, for the
+    ``x_dropoffs`` int32[n_ctx]. With ``disc_offsets`` (a discontiguous
+    template, whose word is the whole template window) there is no
+    mini-extension: every raw seed goes on (s_BlastNaExtendDirect,
+    na_ungapped.c:941). Returns (qs, ss, ctx, x_drop, max_l, max_r,
+    n_raw): int64 seed starts, then int32 kernel inputs, for the
     mini-extension survivors only, and the raw seed count."""
     q_off, s_off = scan_block(
         subject2, subject_valid, lut_offsets, lut_positions,
         scan_step=scan_step, lut_word=lut_word, n_scan=n_scan,
+        disc_offsets=disc_offsets,
     )
-    # owning-subject bounds before the extension (it never crosses the
-    # inter-subject pad, so the subject is stable under the left shift)
-    oid = owning_subject(s_off, subject_starts)
-    qs, ss, ok = mini_extend_packed(
-        query_nib, subject_w, q_off, s_off,
-        subject_starts[oid], subject_ends[oid],
-        lut_word=lut_word, word_size=word_size,
-    )
-    keep = torch.nonzero(ok).squeeze(1)
-    qs, ss = qs[keep], ss[keep]
+    if disc_offsets:
+        qs, ss = q_off, s_off
+    else:
+        # owning-subject bounds before the extension (it never crosses
+        # the inter-subject pad, so the subject is stable under the left
+        # shift)
+        oid = owning_subject(s_off, subject_starts)
+        qs, ss, ok = mini_extend_packed(
+            query_nib, subject_w, q_off, s_off,
+            subject_starts[oid], subject_ends[oid],
+            lut_word=lut_word, word_size=word_size,
+        )
+        keep = torch.nonzero(ok).squeeze(1)
+        qs, ss = qs[keep], ss[keep]
 
     n_ctx = x_dropoffs.shape[0]
     ctx = (torch.searchsorted(ctx_offsets, qs, right=True) - 1).clamp(

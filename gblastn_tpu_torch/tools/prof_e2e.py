@@ -11,9 +11,15 @@ and the replay R, up to the one wait on the card) and
 fetched (``seeding.fetch_bytes``) and the seeds G gated
 (``seeding.gate_need``).
 
-  config1  megablast, 500 x 1 kb reads against a 4.6 Mb genome
-  config2  blastn word 11, 200 x 1.5 kb reads against the same genome
-  config3  megablast, 500 x 1 kb reads against a 300 Mb genome
+  config1   megablast, 500 x 1 kb reads against a 4.6 Mb genome
+  config1w  config 1 with two-hit seeding (-window_size 40): word 28,
+            LUT width 12, so the double-word probe RR runs
+  config2   blastn word 11, 200 x 1.5 kb reads against the same genome
+  config2w  config 2 with -window_size 40 (LUT width 11: no RR)
+  config2d  dc-megablast (template 18 coding, window 40), 200 x 1.5 kb
+            reads with third-position wobble (bench.py's config 2d; the
+            first set is workloads.config2d_reads)
+  config3   megablast, 500 x 1 kb reads against a 300 Mb genome
 
 Run on the card:  python -m gblastn_tpu_torch.tools.prof_e2e [config1]
 On the CPU:       ... --device cpu --small   (a small size; CPU times)
@@ -32,19 +38,38 @@ from gblastn_tpu_torch.io.fasta import FastaRecord
 from gblastn_tpu_torch.io.seqdb import SequenceDB
 from gblastn_tpu_torch.params.options import (
     blastn_options,
+    dc_megablast_options,
     megablast_options,
 )
 from gblastn_tpu_torch.tools.timing import device_label
 from gblastn_tpu_torch.utils.profiling import slog
 from gblastn_tpu_torch.tools.workloads import (
     BIG_GENOME_LEN,
+    C2_QUERIES,
+    C2_QUERY_LEN,
     GENOME_LEN,
     NUM_QUERIES,
     QUERY_LEN,
     SEED,
     make_genome,
     sample_reads,
+    wobble_reads,
 )
+
+CONFIGS = ("config1", "config1w", "config2", "config2w", "config2d",
+           "config3")
+
+
+def config_options(which: str):
+    """The search options of a configuration (evalue 1e-5, 10 targets)."""
+    kw = dict(evalue=1e-5, max_target_seqs=10)
+    if which == "config2d":
+        return dc_megablast_options(**kw)
+    if which.endswith("w"):
+        kw["window_size"] = 40
+    make = blastn_options if which.startswith("config2") else \
+        megablast_options
+    return make(**kw)
 
 
 def main(argv=None) -> int:
@@ -52,7 +77,7 @@ def main(argv=None) -> int:
         prog="python -m gblastn_tpu_torch.tools.prof_e2e",
         description=__doc__.splitlines()[0])
     ap.add_argument("config", nargs="?", default="config1",
-                    choices=("config1", "config2", "config3"))
+                    choices=CONFIGS)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true",
                     help="a small size for a CPU run")
@@ -67,18 +92,23 @@ def main(argv=None) -> int:
     else:
         rng = np.random.default_rng(SEED)
         genome_len, prefix = GENOME_LEN, "w{}_"
-    n, qlen = (200, 1500) if which == "config2" else (NUM_QUERIES,
-                                                       QUERY_LEN)
+    n, qlen = ((C2_QUERIES, C2_QUERY_LEN) if which.startswith("config2")
+               else (NUM_QUERIES, QUERY_LEN))
     if args.small:
         genome_len, n = 60_000, 4
     genome = make_genome(rng, genome_len)
     db = SequenceDB.from_records(
         [FastaRecord("synth", "synthetic genome", genome)], title=which)
-    sets = [[FastaRecord(name, "", seq) for name, seq in sample_reads(
-        rng, genome, n, qlen, prefix.format(k))[0]] for k in range(3)]
+    if which == "config2d":
+        rng, prefix = np.random.default_rng(SEED + 6), "d"
+    sets = []
+    for k in range(3):
+        pairs = sample_reads(rng, genome, n, qlen, prefix.format(k))[0]
+        if which == "config2d":
+            pairs = wobble_reads(rng, pairs)
+        sets.append([FastaRecord(name, "", seq) for name, seq in pairs])
     del genome
-    options = (blastn_options if which == "config2" else megablast_options)(
-        evalue=1e-5, max_target_seqs=10)
+    options = config_options(which)
     t0 = time.time()
     search(sets[0], db, options, device=dev)     # warm-up
     print(f"# warm-up {time.time() - t0:.2f}s", flush=True)

@@ -20,10 +20,13 @@ kernel from a CUDA graph of 100 (``tools.timing.graph_ms``):
     held bit-equal too and timed in the same turns: parent, this tree,
     this tree, parent;
   * the device finish's G and R (ops/replay.py) at config 1's and config
-    2's search-path inputs (``tools.replay_sets.batch_cases``), each held
-    bit-equal to its plain version and timed as one launch alone and as a
-    wrapper call, with the two ``torch.sort`` calls that order R's seeds
-    (``replay_keys``) timed beside them.
+    2's search-path inputs (``tools.replay_sets.batch_cases``), and with
+    two-hit seeding at configs 1w, 2w and 2d (``prof_e2e``'s: window 40;
+    dc-megablast), with RR at config 1w (the one of them that probes
+    double words; ``batch_run_case``), each held bit-equal to its plain
+    version and timed as one launch alone and as a wrapper call, with the
+    two ``torch.sort`` calls that order R's seeds (``replay_keys``) timed
+    beside them.
 
 Run on the card:
     python -m gblastn_tpu_torch.tools.prof_launch [--parent DIR]
@@ -44,8 +47,7 @@ from gblastn_tpu_torch.ops import gapped as og
 from gblastn_tpu_torch.ops import ungapped as ung
 from gblastn_tpu_torch.tools import prof_gapped
 from gblastn_tpu_torch.tools.timing import call_ms, device_label, graph_ms
-
-C2_QUERIES, C2_QUERY_LEN = 200, 1500
+from gblastn_tpu_torch.tools.workloads import C2_QUERIES, C2_QUERY_LEN
 
 
 def _raw_stream(dev):
@@ -88,7 +90,8 @@ def search_shapes(dev):
     k1_c1 = ungapped_inputs(b1.seed_dev, **b1.seed_kw)[1]
     rng2 = np.random.default_rng(SEED + 2)
     pairs2, _ = sample_reads(rng2, genome, C2_QUERIES, C2_QUERY_LEN, "b")
-    b2 = setup_batch([FastaRecord(n, "", s) for n, s in pairs2], db,
+    reads2 = [FastaRecord(n, "", s) for n, s in pairs2]
+    b2 = setup_batch(reads2, db,
                      blastn_options(evalue=1e-5, max_target_seqs=10), dev)
     k1_c2 = ungapped_inputs(b2.seed_dev, **b2.seed_kw)[1]
     init = run_seeding(b2.seed_dev, **b2.seed_kw)
@@ -98,23 +101,50 @@ def search_shapes(dev):
     k2 = ((dgd.query, dgd.subject2, dgd.matrix16, jobs),
           dict(rows=dgd.rows, gap_open=dgd.gap_open,
                gap_extend=dgd.gap_extend))
-    from gblastn_tpu_torch.tools.replay_sets import batch_cases
+    from gblastn_tpu_torch.tools.prof_e2e import config_options
+    from gblastn_tpu_torch.tools.replay_sets import (
+        batch_cases,
+        batch_run_case,
+    )
+    from gblastn_tpu_torch.tools.workloads import config2d_reads
 
-    return k1_c1, k1_c2, k2, {"config1": batch_cases(b1),
-                              "config2": batch_cases(b2)}
+    reads1 = [FastaRecord(n, "", s) for n, s in pairs]
+    reads2d = [FastaRecord(n, "", s)
+               for n, s in config2d_reads(genome)[0]]
+    finish = {"config1": (batch_cases(b1), None),
+              "config2": (batch_cases(b2), None)}
+    for name, reads in (("config1w", reads1), ("config2w", reads2),
+                        ("config2d", reads2d)):
+        b = setup_batch(reads, db, config_options(name), dev)
+        finish[name] = (batch_cases(b), batch_run_case(b))
+    return k1_c1, k1_c2, k2, finish
 
 
 def finish_times(cases, label):
-    """G and R at each case of ``search_shapes``' fourth item:
-    bit-equal to their plain versions, one launch alone (a CUDA graph of
-    100) and a wrapper call, and the two stable ``torch.sort`` calls of
-    ``replay_keys`` that order R's seeds (a call, CUDA events). Prints a
-    line a case and returns (records, all bit-equal)."""
+    """RR (where the case has it), G and R at each case of
+    ``search_shapes``' fourth item: bit-equal to their plain versions, one
+    launch alone (a CUDA graph of 100) and a wrapper call, and the two
+    stable ``torch.sort`` calls of ``replay_keys`` that order R's seeds (a
+    call, CUDA events). Prints a line a case and returns (records, all
+    bit-equal)."""
     from gblastn_tpu_torch.engine.seeding import diag_table_mask
     from gblastn_tpu_torch.ops import replay as rp
 
     rec, ok = {}, True
-    for name, (g_args, g_kw, r_args, r_kw) in cases.items():
+    for name, ((g_args, g_kw, r_args, r_kw), run_case) in cases.items():
+        rr_note = ""
+        if run_case is not None:
+            a, kw = run_case
+            same = torch.equal(rp.right_run(*a, **kw),
+                               rp.right_run_ref(*a, **kw))
+            ok &= same
+            one = graph_ms(lambda: rp.right_run(*a, **kw),
+                           counted=(rp.right_run,))
+            call = call_ms(lambda: rp.right_run(*a, **kw), 20, "cuda")
+            rec[f"rr_{name}"] = {"seeds": a[3].numel(), "ms_graph": one,
+                                 "ms_call": call, "bit_equal": same}
+            rr_note = (f"; RR one launch {one:.4f} ms, a call {call:.4f}, "
+                       f"bit-equal {same}")
         g_want = rp.approx_gate_ref(*g_args, **g_kw)
         r_want = rp.diag_replay_ref(*r_args, **r_kw)
         g_same = _same(rp.approx_gate(*g_args, **g_kw), g_want)
@@ -126,7 +156,7 @@ def finish_times(cases, label):
                          counted=(rp.diag_replay,))
         g_call = call_ms(lambda: rp.approx_gate(*g_args, **g_kw), 20, "cuda")
         r_call = call_ms(lambda: rp.diag_replay(*r_args, **r_kw), 20, "cuda")
-        mask = diag_table_mask(g_kw["concat_end"] - 1, 0)
+        mask = diag_table_mask(g_kw["concat_end"] - 1, r_kw["window"])
         sort = call_ms(lambda: rp.replay_keys(g_args[6], r_args[2],
                                               g_args[9], mask), 20, "cuda")
         n = g_args[6].numel()
@@ -134,10 +164,11 @@ def finish_times(cases, label):
                      "gate_ms_call": g_call, "replay_ms_graph": r_one,
                      "replay_ms_call": r_call, "sort_ms_call": sort,
                      "bit_equal": bool(g_same and r_same)}
-        print(f"finish {name}: {n} seeds; G one launch {g_one:.4f} ms, a "
-              f"call {g_call:.4f}; R one launch {r_one:.4f} ms, a call "
-              f"{r_call:.4f}; replay_keys (two torch.sort) {sort:.4f} ms a "
-              f"call; bit-equal {g_same and r_same}  [{label}]", flush=True)
+        print(f"finish {name}: {n} seeds, window {r_kw['window']}; G one "
+              f"launch {g_one:.4f} ms, a call {g_call:.4f}; R one launch "
+              f"{r_one:.4f} ms, a call {r_call:.4f}; replay_keys (two "
+              f"torch.sort) {sort:.4f} ms a call; bit-equal "
+              f"{g_same and r_same}{rr_note}  [{label}]", flush=True)
     return rec, ok
 
 

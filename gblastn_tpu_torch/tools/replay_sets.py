@@ -1,8 +1,11 @@
-"""Inputs of the device finish's kernels G and R (ops/replay.py) for the
-comparisons with their plain versions and for the profilers: the search
-path's own at a batch (``batch_cases``), and random sets that reach the
-cases the search path seldom does (``random_gate_case``,
-``random_replay_cases``). Each is built on the given device from a seeded
+"""Inputs of the device finish's kernels RR, G and R (ops/replay.py) for
+the comparisons with their plain versions and for the profilers: the
+search path's own at a batch (``batch_cases``, ``batch_run_case``), and
+random sets that reach the cases the search path seldom does
+(``random_gate_case``, ``random_replay_cases``, ``random_run_cases``,
+``random_two_hit_cases``; the last two from numpy arrays that the CPU
+tests also hold against the host twins: ``run_arrays``,
+``two_hit_arrays``). Each is built on the given device from a seeded
 numpy generator.
 """
 from __future__ import annotations
@@ -14,32 +17,61 @@ from gblastn_tpu_torch.engine.seeding import (
     diag_table_mask,
     gate_inputs,
     replay_inputs,
+    run_inputs,
     ungapped_inputs,
 )
 from gblastn_tpu_torch.io.fasta import FastaRecord
 from gblastn_tpu_torch.io.seqdb import SequenceDB
-from gblastn_tpu_torch.ops.replay import approx_gate, query_bytes, replay_keys
+from gblastn_tpu_torch.ops.replay import (
+    approx_gate,
+    query_bytes,
+    replay_keys,
+    right_run,
+)
+from gblastn_tpu_torch.ops.seeding import pack_query_nibbles, pack_subject_words
 from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
 from gblastn_tpu_torch.params.derived import nucl_score_table_packed
 
+
+def _k1(batch):
+    kw = batch.seed_kw
+    dev = batch.seed_dev
+    ctx, k1_args, _n = ungapped_inputs(dev, **kw)
+    ung = ungapped_extend_window(*k1_args)
+    return k1_args, gate_inputs(dev, k1_args, ctx, ung), ung
+
+
+def batch_run_case(batch):
+    """RR's inputs on a batch's search path: (args, kw) of ``right_run``
+    for K1's seeds, as ``engine.seeding.device_finish`` builds them, or
+    None where the path runs no RR (one-hit, or the ``rr_zero`` rule)."""
+    k1_args, g_args, _ung = _k1(batch)
+    rr_args = run_inputs(batch.seed_dev, k1_args, g_args, batch.seed_kw)
+    return (None if rr_args is None
+            else (rr_args, dict(word_size=batch.seed_kw["word_size"])))
+
+
 def batch_cases(batch):
     """G's and R's inputs on a batch's search path (a ``BatchSetup``):
-    scan, mini-extension and K1 on its device, then (g_args, g_kw, r_args,
+    scan, mini-extension and K1 on its device (and RR where the path runs
+    it, its runs in both keyword sets), then (g_args, g_kw, r_args,
     r_kw): ``approx_gate``'s arguments for K1's outputs, and
     ``diag_replay``'s for the rows after the gate, as
     ``engine.seeding.device_finish`` builds them."""
     kw = batch.seed_kw
     dev = batch.seed_dev
-    ctx, k1_args, _n = ungapped_inputs(dev, **kw)
-    ung = ungapped_extend_window(*k1_args)
+    k1_args, g_args, ung = _k1(batch)
+    rr_args = run_inputs(dev, k1_args, g_args, kw)
+    runs = (None if rr_args is None
+            else right_run(*rr_args, word_size=kw["word_size"]))
     n_ctx = len(kw["x_dropoffs"])
     concat_end = int(kw["context_offsets"][n_ctx]) - 1
     word = kw["word_size"]
-    g_args = gate_inputs(dev, k1_args, ctx, ung)
-    g_kw = dict(word_size=word, concat_end=concat_end)
+    g_kw = dict(word_size=word, concat_end=concat_end, right_run=runs)
     rows = approx_gate(*g_args, **g_kw)[:4] if word >= 11 else ung[:4]
     r_args = replay_inputs(dev, g_args, rows, concat_end=concat_end)
-    return g_args, g_kw, r_args, dict(word_size=word)
+    return g_args, g_kw, r_args, dict(word_size=word, window=dev.window,
+                                      right_run=runs)
 
 
 def random_gate_case(device, n=65536, seed=4242):
@@ -161,4 +193,156 @@ def random_replay_cases(device, n=262144, seed=777):
         key, order = replay_keys(qt, st, ot, mask)
         out.append((label, (key, order, st, t(end), t(score),
                             t(np.full(n, 22))), dict(word_size=word)))
+    return out
+
+
+def run_arrays(word, n=65536, seed=909):
+    """RR's random set as numpy arrays: (db, query, q_off, s_off, oid).
+    Eight subjects; a 64 Ki-base query (a multiple of 8) with sentinels
+    at both ends, stretches copied from the subjects with a mismatch, an
+    N (14), an R (4) or a Y (5) every 1 to 2 * word + 2 bases, so that a
+    seed on a stretch has a run of every length 0 .. word; stretches
+    copied from the last bases of a subject (the subject's end inside the
+    run) and to the query's last bases (the query's end inside it), and
+    sentinels through the query. Half the seeds lie on the stretches, an
+    eighth at subject ends, an eighth at the query's end, the rest at
+    random."""
+    rng = np.random.default_rng(seed + word)
+    subs = [rng.integers(0, 4, int(rng.integers(3000, 40000)))
+            for _ in range(8)]
+    db = SequenceDB.from_records(
+        [FastaRecord(f"s{i}", "", "".join("ACGT"[c] for c in x))
+         for i, x in enumerate(subs)], title="run-random")
+    sub2 = db.unpacked()
+    starts = np.asarray(db.starts, np.int64)
+    ends = starts + np.asarray(db.lengths, np.int64)
+    Q = 1 << 16
+    query = rng.integers(0, 4, Q).astype(np.uint8)
+    plants = []
+    for k in range(400):
+        o = int(rng.integers(0, 8))
+        L = int(rng.integers(100, 600))
+        if k % 8 == 0:                    # the subject's last bases
+            sp = int(ends[o] - L)
+        else:
+            sp = int(rng.integers(starts[o], ends[o] - L))
+        qp = Q - L if k == 1 else int(rng.integers(8, Q - L - 8))
+        seg = sub2[sp: sp + L].astype(np.uint8).copy()
+        p = int(rng.integers(0, word))
+        while p < L:                      # a break every 1 .. 2 word + 2
+            seg[p] = rng.choice([(seg[p] + 1) % 4, 14, 4, 5])
+            p += int(rng.integers(1, 2 * word + 3))
+        query[qp: qp + L] = seg
+        plants.append((qp, sp, L, o))
+    query[::1531] = 15                    # none inside the last stretch
+    # a seed's word lies inside its subject and the query, as the scan's
+    # do (past the subject's end the host twin reads the next subject)
+    oid = rng.integers(0, 8, n)
+    s = starts[oid] + (rng.random(n) * (db.lengths[oid] - word)).astype(
+        np.int64)
+    q = rng.integers(1, Q - word, n).astype(np.int64)
+    for k in range(0, n, 2):
+        qp, sp, L, o = plants[int(rng.integers(0, len(plants)))]
+        d = int(rng.integers(0, L - word))
+        q[k], s[k], oid[k] = qp + d, sp + d, o
+    end = np.arange(1, n, 8)              # word end near the subject's end
+    back = rng.integers(word, 2 * word + 2, len(end))
+    plant_end = plants[::8]
+    for j, k in enumerate(end):
+        qp, sp, L, o = plant_end[j % len(plant_end)]
+        s[k] = sp + L - back[j]
+        q[k] = qp + L - back[j]
+        oid[k] = o
+    qend = np.arange(3, n, 8)             # word end near the query's end
+    qp, sp, L, o = plants[1]
+    d = L - rng.integers(word, 2 * word + 2, len(qend))
+    q[qend], s[qend], oid[qend] = qp + d, sp + d, o
+    return db, query, q, s, oid
+
+
+def random_run_cases(device, n=65536, seed=909):
+    """RR's random sets, [(label, args, kw)] of ``right_run``, at words 11
+    and 28 (``run_arrays``)."""
+    out = []
+    for word in (11, 28):
+        db, query, q, s, oid = run_arrays(word, n, seed)
+
+        def t(a, dt=torch.int32):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+        starts = np.asarray(db.starts, np.int64)
+        args = (pack_query_nibbles(t(query, torch.uint8)),
+                pack_subject_words(t(db.packed_padded(), torch.uint8)),
+                t(starts + np.asarray(db.lengths, np.int64), torch.int64),
+                t(q), t(s), t(oid))
+        out.append((f"random seeds, word {word}, runs 0..{word}, N/R/Y, "
+                    "sentinels, subject and query ends", args,
+                    dict(word_size=word)))
+    return out
+
+
+def two_hit_arrays(n, word, window, mask, dense, seed):
+    """Two-hit R's random set as numpy arrays (subject-local s): q, s,
+    oid, end, score, cutoff, run. Chains on shared diagonals spaced 1 to
+    2 word + window bases apart (second hits inside and outside the
+    window), each chain's seeds failing or ready as their runs say
+    (three in ten with a run, one in ten a double word); pairs at exactly
+    s + word == last_hit + window and one base past it; single seeds on
+    virgin diagonals; a dense chain of ``dense`` seeds, one a base; 2%
+    identical seeds; shuffled."""
+    rng = np.random.default_rng(seed + word)
+    q, s, oid = _chains(rng, n, word + window // 2, 4, 60, dense)
+    run = np.where(rng.random(n) < 0.7, 0, rng.integers(1, word, n))
+    run[rng.random(n) < 0.1] = word
+    # boundary pairs on fresh diagonals: the first seed fails as a first
+    # hit (run r < word, so last_hit = s0 + word + r), the second starts
+    # where s + word - last_hit - window is 0 (second hit) or 1 (first)
+    m = min(n // 20, 4000) // 2 * 2
+    base = n - 2 * m - n // 50
+    for j in range(0, m, 2):
+        i = base + j
+        r0 = int(rng.integers(0, word))
+        d = 400000 + 7 * j
+        q0 = int(rng.integers(1, 5000))
+        q1 = q0 + r0 + window + (j // 2) % 2
+        q[i], s[i], oid[i], run[i] = q0, q0 + d, 2, r0
+        q[i + 1], s[i + 1], oid[i + 1] = q1, q1 + d, 2
+    vb = base + m                       # virgin diagonals: one seed each
+    for i in range(vb, vb + n // 50):
+        q[i] = int(rng.integers(1, 5000))
+        s[i] = q[i] + 900000 + 3 * i
+        oid[i] = 3
+    k = n // 50
+    src, dst = rng.integers(0, n, k), rng.integers(0, n, k)
+    q[dst], s[dst], oid[dst], run[dst] = q[src], s[src], oid[src], run[src]
+    score = rng.integers(0, 44, n)
+    score[base: base + m] = 40          # the pairs pass when ready
+    end = s - rng.integers(0, 10, n) + rng.integers(word, 60, n)
+    end[::17] = s[::17]
+    cutoff = np.full(n, 22)
+    perm = rng.permutation(n)
+    return tuple(a[perm] for a in (q, s, oid, end, score, cutoff, run))
+
+
+def random_two_hit_cases(device, n=262144, seed=4040, window=40):
+    """Two-hit R's random sets, [(label, args, kw)] of ``diag_replay``
+    with ``window`` (``two_hit_arrays``): word 11 with exact diagonals
+    and a dense chain of 20,000 seeds; word 28 with the aliasing mask of
+    a 4,000-base query, the window in its length."""
+    out = []
+    for label, word, mask, dense in (
+            ("two-hit, dense chain, exact diagonals", 11, 0, 20000),
+            ("two-hit, aliasing mask", 28, diag_table_mask(4000, window),
+             0)):
+        q, s, oid, end, score, cutoff, run = two_hit_arrays(
+            n, word, window, mask, dense, seed)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device, torch.int32)
+
+        qt, st, ot = t(q), t(s), t(oid)
+        key, order = replay_keys(qt, st, ot, mask)
+        out.append((label, (key, order, st, t(end), t(score), t(cutoff)),
+                    dict(word_size=word, window=window, right_run=t(run))))
     return out

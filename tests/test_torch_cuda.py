@@ -1,4 +1,4 @@
-"""K1, K2, the table gather, and the device finish's G and R on the card
+"""K1, K2, the table gather, and the device finish's RR, G and R on the card
 against their plain versions, on the same CUDA tensors.
 
 Needs a CUDA card (skips elsewhere). Imports no JAX, so it also runs on a
@@ -472,3 +472,97 @@ def test_gate_range_flag_raises():
         assert torch.equal(g[bad], k[bad])
     with pytest.raises(ValueError, match="outside"):
         check_gate_flags(got[4])
+
+
+@pytest.mark.cuda
+def test_right_run_and_two_hit_replay_bit_equal_to_plain_versions():
+    """RR against its plain version on its random sets (words 11 and 28:
+    runs of every length, N/R/Y, sentinels, subject and query ends), two-hit
+    R on its (a dense chain, double words, the window's boundary pairs,
+    virgin diagonals, identical seeds, the aliasing mask with the window),
+    and G with the runs of a random set, also replayed from a CUDA graph
+    that captured each wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops.replay import (
+        approx_gate,
+        approx_gate_ref,
+        diag_replay,
+        diag_replay_ref,
+        right_run,
+        right_run_ref,
+    )
+    from gblastn_tpu_torch.tools.replay_sets import (
+        random_gate_case,
+        random_run_cases,
+        random_two_hit_cases,
+    )
+
+    dev = torch.device("cuda:0")
+    g_args, g_kw = random_gate_case(dev, n=8192)
+    runs = torch.randint(0, 12, (8192,), dtype=torch.int32, device=dev)
+    cases = ([(right_run, right_run_ref, a, kw)
+              for _label, a, kw in random_run_cases(dev, n=16384)]
+             + [(diag_replay, diag_replay_ref, a, kw)
+                for _label, a, kw in random_two_hit_cases(dev, n=65536)]
+             + [(approx_gate, approx_gate_ref, g_args,
+                 dict(g_kw, right_run=runs))])
+    for fn, ref, args, kw in cases:
+        want = ref(*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        before = fn.launches
+        got = fn(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*args, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_dc_megablast_cuda_bytes_equal_cpu_bytes(tmp_path):
+    """A small dc-megablast search (coding_and_optimal: two templates, one
+    K1, window 40) and a blastn search with -window_size 40 through the
+    CLI: -device cuda writes the -device cpu bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.cli.main import main
+    from gblastn_tpu_torch.ops.replay import diag_replay
+
+    rng = np.random.default_rng(61)
+    genome = "".join("ACGT"[c] for c in rng.integers(0, 4, 60000))
+    reads = []
+    for k in range(12):
+        st = int(rng.integers(0, 58000))
+        r = list(genome[st: st + 1200])
+        for p in range(2, 1200, 3):
+            if rng.random() < 0.3:
+                r[p] = "ACGT"[("ACGT".index(r[p]) + 1) % 4]
+        reads.append(f">d{k}\n{''.join(r)}\n")
+    (tmp_path / "q.fa").write_text("".join(reads))
+    (tmp_path / "g.fa").write_text(">g\n" + genome + "\n")
+    assert main(["makedb", "-in", str(tmp_path / "g.fa"), "-out",
+                 str(tmp_path / "db"), "-title", "g"]) == 0
+    for extra in (["-task", "dc-megablast", "-template_type",
+                   "coding_and_optimal"],
+                  ["-task", "blastn", "-window_size", "40"]):
+        args = ["blastn", "-query", str(tmp_path / "q.fa"), "-db",
+                str(tmp_path / "db"), "-outfmt", "6", "-evalue", "1e-5",
+                *extra]
+        before = diag_replay.launches
+        assert main(args + ["-device", "cuda", "-out",
+                            str(tmp_path / "c.tsv")]) == 0
+        assert diag_replay.launches > before
+        assert main(args + ["-device", "cpu", "-out",
+                            str(tmp_path / "p.tsv")]) == 0
+        got = (tmp_path / "c.tsv").read_bytes()
+        assert got.count(b"\n") >= 6
+        assert got == (tmp_path / "p.tsv").read_bytes()

@@ -35,7 +35,9 @@ db = gblastn_tpu_torch.SequenceDB.from_records([FastaRecord("g", "", genome)])
 reads = [FastaRecord("a", "", genome[1000:1300]),
          FastaRecord("b", "", genome[5000:5250])]
 for options in (gblastn_tpu_torch.megablast_options(),
-                gblastn_tpu_torch.blastn_options()):
+                gblastn_tpu_torch.blastn_options(),
+                gblastn_tpu_torch.options_for_task("dc-megablast"),
+                gblastn_tpu_torch.megablast_options(window_size=40)):
     # blastn also runs the plain version of the device gapped filter
     os.environ["GBLASTN_TPU_GAPPED_FILTER"] = (
         "1" if options.task.value == "blastn" else "auto")
@@ -116,6 +118,36 @@ def test_smoke_workload_matches_bench(config):
     for (_name, seq), st in zip(pairs, starts):
         # any deletion lies past base 100: the head is the source, 2% off
         assert sum(a != b for a, b in zip(seq[:100], genome[st:])) < 15
+
+
+def test_config2d_workload_matches_bench(monkeypatch):
+    """workloads.config2d_reads gives the reads that bench.py's
+    bench_config2d searches (its draws and its wobble, from the
+    generator it is given: here SEED + 6), on a shorter genome."""
+    import bench
+    import gblastn_tpu.engine.search as jes
+    from gblastn_tpu_torch.tools import workloads
+
+    seen = []
+
+    class _Empty:
+        queries = []
+
+    def record(reads, db, options):
+        seen.append([(r.seq_id, r.sequence) for r in reads])
+        return _Empty()
+
+    monkeypatch.setattr(jes, "search", record)
+    genome = workloads.make_genome(np.random.default_rng(9), 60_000)
+    bench.bench_config2d(None, genome,
+                         np.random.default_rng(workloads.SEED + 6))
+    got, starts = workloads.config2d_reads(genome)
+    assert seen[0] == seen[1] == got
+    assert len(got) == workloads.C2_QUERIES == 200
+    assert all(len(s) in (1500, 1497) for _n, s in got)
+    for (_name, seq), st in zip(got, starts):
+        # wobble (about 8%) and 2% substitutions: the head is the source
+        assert sum(a != b for a, b in zip(seq[:100], genome[st:])) < 30
 
 
 def test_scan_rate_workload_matches_reference(monkeypatch):

@@ -99,6 +99,10 @@ TOOLS = {
     "prof_e2e config1": (prof_e2e.main, ["config1"], [
         "# warm-up", "# run 0:", "# run 1:", "q/s",
         "== gblastn_tpu stage report ==", "device.seeding.pipeline"]),
+    "prof_e2e config1w": (prof_e2e.main, ["config1w"], [
+        "# warm-up", "# run 1:", "device.seeding.finish"]),
+    "prof_e2e config2d": (prof_e2e.main, ["config2d"], [
+        "# warm-up", "# run 1:", "device.seeding.finish"]),
 }
 
 
@@ -302,3 +306,43 @@ def test_build_keeps_its_log(tmp_path, monkeypatch):
     assert _build.build_log == PTXAS_LOG
     assert [k[1] for k in chip_smoke.ptxas_kernels(_build.build_log)
             if k[0] == "ungapped_xdrop.cu"] == ["k1_kernel"]
+
+
+def test_chip_smoke_rr_work():
+    """chip_smoke.py's RR bound counts what the walk needs: a step loop in
+    the kernel's order (load the words of the next base, compare, stop
+    short of the limit or at the limit) over RR's random sets gives the
+    plain version's runs, and the words it loads (each once), the subject
+    ends it reads and 16 bytes a seed are rr_work's bytes, its compares
+    rr_work's compares."""
+    import chip_smoke
+    from gblastn_tpu_torch.ops.replay import right_run_ref
+    from gblastn_tpu_torch.tools.replay_sets import random_run_cases
+
+    for _label, args, kw in random_run_cases("cpu", n=1024):
+        word = kw["word_size"]
+        run = right_run_ref(*args, **kw)
+        qn, sw, ends, q_off, s_off, oid = (t.tolist() for t in args)
+        qwords, swords, subs, compares = set(), set(), set(), 0
+        for i in range(len(q_off)):
+            o = oid[i]
+            got = 0
+            if 0 <= o < len(ends):
+                subs.add(o)
+                q, s = q_off[i] + word, s_off[i] + word
+                lim = min(word, 8 * len(qn) - q,
+                          min(ends[o], 16 * len(sw)) - s)
+                while q >= 0 and s >= 0 and got < lim:
+                    qp, sp = q + got, s + got
+                    qwords.add(qp // 8)
+                    swords.add(sp // 16)
+                    compares += 1
+                    nib = (qn[qp // 8] >> (4 * (7 - qp % 8))) & 15
+                    code = (sw[sp // 16] >> (2 * (15 - sp % 16))) & 3
+                    if nib != 1 << code:
+                        break
+                    got += 1
+            assert got == int(run[i]), i
+        want = 16 * len(q_off) + 8 * (len(qwords) + len(swords) + len(subs))
+        assert want < chip_smoke.nbytes(*args)
+        assert chip_smoke.rr_work(args, word, run) == (want, compares)
