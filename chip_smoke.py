@@ -16,10 +16,13 @@ share of the walk steps on seeds the one-hit replay saves (configs 1 and
 2), holds the device finish (G, the approximate-ungapped gate, and R,
 the one-hit diagonal replay) to its plain versions at configs 1 and 2
 and on its random sets (a long repeat, ambiguity codes and subject ends
-for G; a dense chain, identical seeds and the aliasing mask for R) and
-``run_seeding`` on the card to the host finish ``_finish_init_hits``
-(InitHits field by field, the bytes fetched beside the full fetch, the
-two finishes' times), and drives the port's paths end to end, each with
+for G; a dense chain, identical seeds and the aliasing mask for R),
+times the order R reads (``replay_keys``: one stable sort of the packed
+key, which every search path must take, and the two-sort form beside
+it) and holds ``run_seeding`` on the card to the host finish
+``_finish_init_hits`` (InitHits field by field, the bytes fetched beside
+the full fetch, the two finishes' times), and drives the port's paths
+end to end, each with
 every kernel's launch counter set to 0 just before it and read just
 after:
 
@@ -336,10 +339,10 @@ def compare_gate(args, kw, label, card, reps):
 
 def compare_replay(args, kw, label, card, reps, keys=None):
     """R against its plain version on the same CUDA tensors, one launch
-    alone and a call timed; the segments (runs of equal keys) and the
-    longest; with ``keys`` = (q_off, s_loc, oid, diag_mask) the two
-    ``torch.sort`` calls that order the seeds (``replay_keys``) timed
-    beside it. Returns a dict."""
+    alone and a call timed; the segments (runs of equal ``key >>
+    key_shift``) and the longest; with ``keys`` = ``replay_keys``' (args,
+    kw) its two forms that order the seeds timed beside it: one stable
+    sort of the packed key and two stable sorts. Returns a dict."""
     import torch
 
     from gblastn_tpu_torch.ops import replay as rp
@@ -351,7 +354,8 @@ def compare_replay(args, kw, label, card, reps, keys=None):
     runs = kw.get("right_run") if kw.get("window") else None
     plain_ms = call_ms(lambda: rp.diag_replay_ref(*args, **kw), 2, "cuda")
     n = args[0].numel()
-    counts = torch.unique_consecutive(args[0], return_counts=True)[1]
+    counts = torch.unique_consecutive(args[0] >> kw.get("key_shift", 0),
+                                      return_counts=True)[1]
     # the long segments (32 seeds or more): their median seed count and
     # median span in bases (a segment's s ascends)
     ends = torch.cumsum(counts, 0)
@@ -362,14 +366,19 @@ def compare_replay(args, kw, label, card, reps, keys=None):
                  f"{int(counts[long_].median())} seeds over "
                  f"{int(spans.median())} bases)" if long_.any() else
                  "none of 32 seeds or more")
-    sort_ms = (call_ms(lambda: rp.replay_keys(*keys), reps, "cuda")
-               if keys is not None else None)
+    sort_ms = sort_two_ms = None
+    if keys is not None:
+        sort_ms = call_ms(lambda: rp.replay_keys(*keys[0], **keys[1]), reps,
+                          "cuda")
+        sort_two_ms = call_ms(lambda: rp.replay_keys(
+            *keys[0], **keys[1], two_sorts=True), reps, "cuda")
     # sorted keys and order, 4 int32 a seed read (5 with two-hit's runs);
     # a byte a seed written
     bound_ms, by = bound(nbytes(*args) + n + (4 * n if runs is not None
                                                else 0), 0)
-    note = f", replay_keys (two torch.sort) {sort_ms:.4f} ms a call" \
-        if sort_ms is not None else ""
+    note = (f", replay_keys: one sort {sort_ms:.4f} ms a call (key_shift "
+            f"{kw['key_shift']}), two sorts {sort_two_ms:.4f}"
+            if sort_ms is not None else "")
     if kw.get("window"):
         note += (f"; two-hit, window {kw['window']}, runs "
                  f"{'from RR' if runs is not None else '0 (rr_zero)'}")
@@ -381,7 +390,8 @@ def compare_replay(args, kw, label, card, reps, keys=None):
           f"ms ({by}){note}  [{card}]")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "ms_graph": ms_graph,
             "bound_ms": bound_ms, "bound_by": by, "sort_ms": sort_ms,
-            "saved": int(want.sum()), "saved_mask": want}
+            "sort_two_ms": sort_two_ms, "saved": int(want.sum()),
+            "saved_mask": want}
 
 
 def rr_work(args, word, run):
@@ -462,18 +472,20 @@ def compare_finish(batch, label, card, reps, k1=None):
     from gblastn_tpu_torch.engine.seeding import (
         _finish_init_hits,
         compute_right_runs,
-        diag_table_mask,
         probes_double_words,
         run_seeding,
     )
-    from gblastn_tpu_torch.tools.replay_sets import batch_cases
+    from gblastn_tpu_torch.tools.replay_sets import (
+        batch_cases,
+        batch_key_case,
+    )
 
     g_args, g_kw, r_args, r_kw = batch_cases(batch)
     window = r_kw["window"]
+    keys = batch_key_case(batch, g_args, g_kw, r_args)
+    check(r_kw["key_shift"] > 0, f"replay_keys took two sorts on {label}")
     g = compare_gate(g_args, g_kw, label, card, reps)
-    r = compare_replay(r_args, r_kw, label, card, reps, keys=(
-        g_args[6], r_args[2], g_args[9],
-        diag_table_mask(g_kw["concat_end"] - 1, window)))
+    r = compare_replay(r_args, r_kw, label, card, reps, keys=keys)
     kw, okw = batch.seed_kw, batch.oracle_kw
     n_ctx = len(kw["x_dropoffs"])
     n = g_args[6].numel()
@@ -533,10 +545,12 @@ def compare_finish(batch, label, card, reps, k1=None):
 
 
 def finish_entry(name, source, replaces, recs, launches, by_path,
-                 registers, main="config2"):
+                 registers, main="config2", sorts=None):
     """The kernels line's right_run, approx_gate or diag_replay entry:
     the ``main`` record's times and bound (config 2's; config 1w's for
-    RR), the other records' beside them."""
+    RR), the other records' beside them; with ``sorts`` (a compare_replay
+    record) ``replay_keys``' one-sort and two-sort times as ``sort_ms``
+    and ``sort_ms_two_sorts``."""
     c2 = recs[main]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
@@ -545,8 +559,9 @@ def finish_entry(name, source, replaces, recs, launches, by_path,
              "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
              "library_ms": None, "ms_graph": c2["ms_graph"],
              "registers": registers, "launches_by_path": by_path}
-    if c2.get("sort_ms") is not None:
-        entry["sort_ms"] = c2["sort_ms"]
+    if sorts is not None:
+        entry["sort_ms"] = sorts["sort_ms"]
+        entry["sort_ms_two_sorts"] = sorts["sort_two_ms"]
     for tag, r in recs.items():
         if tag != main:
             entry.update({f"{k}_{tag}": r[k] for k in (
@@ -1340,10 +1355,10 @@ def main() -> int:
         gather_entry(psp["gather"], psp_launches[2], psp["sweep"]),
         finish_entry("approx_gate", G_SOURCE, G_REPLACES, g_recs,
                      c2_launches[2], {p: c[2] for p, c in paths.items()},
-                     regs["G"]),
+                     regs["G"], sorts=r_c2),
         finish_entry("diag_replay", R_SOURCE, R_REPLACES, r_recs,
                      c2_launches[3], {p: c[3] for p, c in paths.items()},
-                     regs["R"]),
+                     regs["R"], sorts=r_c2),
         finish_entry("right_run", RR_SOURCE, RR_REPLACES, rr_all,
                      cli_paths["config1w"]["launches"][4],
                      {p: c[4] for p, c in paths.items()}, regs["RR"],

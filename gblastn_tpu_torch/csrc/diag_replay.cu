@@ -36,20 +36,35 @@
 // machine (with one kernel for both, one-hit R took 6% longer at 887,574
 // seeds on an H100).
 //
-// The caller sorts (ops/replay.py::replay_keys: two stable sorts of
-// 64-bit keys, torch.sort): key[p] is the primary key (oid << 32 |
-// masked diagonal + 2^31) of the seed at sorted position p, order[p] its
-// index. The per-seed arrays stay in the original order, in subject-local
-// coordinates, so every value is an int32 (the resident bound).
+// The caller sorts (ops/replay.py::replay_keys): key[p] is the sorted
+// key of the seed at sorted position p, order[p] its index, and a segment
+// (one oid and masked diagonal) is a run of equal key[p] >> key_shift:
+// one stable sort of a packed key (oid, diagonal, s, and q with a mask)
+// where it fits 63 bits, else the primary key (oid << 32 | masked
+// diagonal + 2^31) of two stable sorts, with shift 0. The per-seed
+// arrays stay in the original order, in subject-local coordinates, so
+// every value is an int32 (the resident bound).
 //
-// A thread a sorted position. A thread whose key differs from its left
-// neighbour's heads a segment (a run of equal keys) and walks it in
-// order; every other thread exits. The walk takes kGroup positions at a
-// time: their keys and indices, then the four gathers of each, are
-// issued before the group's seeds run through the state machine, so a
-// segment waits on the memory twice a group, not twice a seed. It writes
-// saved = 1 at a saved seed's original index; the wrapper clears the
-// output first.
+// A thread a sorted position. A thread whose segment key differs from
+// its left neighbour's heads a segment and walks it in order; every
+// other thread exits. The walk takes kGroup positions at a time: their
+// keys and indices, then the four gathers of each, are issued before the
+// group's seeds run through the state machine. The first group's keys
+// and indices come in the same round of loads as the left neighbour's
+// key, so a segment of one group waits on the memory twice (three times
+// where the head test loads alone), and twice a group after; a group's
+// positions in the segment are a count and its cutoff tests a bit mask,
+// which keeps the one-hit kernel at 64 registers and the two-hit one at
+// 72 (as arrays: 78 and 80). It writes saved = 1 at a saved seed's
+// original index; the wrapper clears the output first.
+//
+// What lost, measured on an H100 (PERF.md): a list of the heads, so that
+// every lane walks a real segment (a ballot and a shared atomic a warp,
+// in blocks of 512 positions; or one global list from a first pass),
+// the rows gathered once into sorted order by such a pass so that the
+// walks read them contiguously, and each group's gathers issued with the
+// next group's keys (103 and 130 registers: fewer blocks on a SM). Each
+// cost more than it saved at config 2.
 //
 // A dense segment (a read's own diagonal holds a seed at nearly every
 // base: at config 2, 260 segments of 32 to 1,313 seeds) made one thread
@@ -85,9 +100,9 @@ constexpr int kStride = 64;       // the search's first stride
 template <typename Last>
 __device__ __forceinline__ bool stops(const long long* key,
                                       const long long* order,
-                                      const int32_t* s_loc, int n,
+                                      const int32_t* s_loc, int n, int shift,
                                       long long k, Last last, int r) {
-  return r >= n || __ldg(key + r) != k ||
+  return r >= n || (__ldg(key + r) >> shift) != k ||
          __ldg(s_loc + __ldg(order + r)) >= last;
 }
 
@@ -96,23 +111,40 @@ __device__ __forceinline__ bool stops(const long long* key,
 // then strides that double, then a binary search inside the last one.
 template <typename Last>
 __device__ int next_stop(const long long* key, const long long* order,
-                         const int32_t* s_loc, int n, long long k,
+                         const int32_t* s_loc, int n, int shift, long long k,
                          Last last, int lo) {
   long long step = 2 * kStride;
   int hi = (int)(lo + kStride - 1LL < n ? lo + kStride - 1LL : n);
-  while (!stops(key, order, s_loc, n, k, last, hi)) {
+  while (!stops(key, order, s_loc, n, shift, k, last, hi)) {
     lo = hi + 1;
     hi = (int)(lo + step - 1 < n ? lo + step - 1 : n);
     step <<= 1;
   }
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (stops(key, order, s_loc, n, k, last, mid))
+    if (stops(key, order, s_loc, n, shift, k, last, mid))
       hi = mid;
     else
       lo = mid + 1;
   }
   return lo;
+}
+
+// How many of sorted positions p0 .. p0 + kGroup - 1 lie in segment k
+// (keys ascend, so they are the first ones), and their indices; each
+// load at a valid position (the last one past the end).
+__device__ __forceinline__ int fetch_group(const long long* key,
+                                           const long long* order, int n,
+                                           int shift, long long k, int p0,
+                                           int (&oq)[kGroup]) {
+  int m = 0;
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) {
+    const int q = p0 + t < n ? p0 + t : n - 1;
+    m += p0 + t < n && (__ldg(key + q) >> shift) == k;
+    oq[t] = (int)__ldg(order + q);    // an index below n < 2^31
+  }
+  return m;
 }
 
 // The walk of the segment headed by sorted position p. One-hit keeps
@@ -127,55 +159,62 @@ __device__ __forceinline__ void walk(const long long* __restrict__ key,
                                      const int32_t* __restrict__ score,
                                      const int32_t* __restrict__ cutoff,
                                      const int32_t* __restrict__ right_run,
-                                     int n, int word, int window, int p,
-                                     uint8_t* __restrict__ saved) {
+                                     int n, int shift, int word, int window,
+                                     int p, uint8_t* __restrict__ saved) {
   using Last = typename std::conditional<kTwoHit, long long, int>::type;
-  const long long k = key[p];
-  if (p > 0 && key[p - 1] == k) return;
+  // the first group's keys and indices come with the left neighbour's
+  // key, in one round of loads; a thread that does not head a segment
+  // exits
+  long long kq[kGroup];
+  int oq[kGroup];
+  const long long prev = __ldg(key + (p > 0 ? p - 1 : 0));
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) {
+    const int q = p + t < n ? p + t : n - 1;
+    kq[t] = __ldg(key + q);
+    oq[t] = (int)__ldg(order + q);    // an index below n < 2^31
+  }
+  const long long k = kq[0] >> shift;
+  if (p > 0 && (prev >> shift) == k) return;
+  int m = 0;    // the group's positions in the segment: the first m
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) m += p + t < n && (kq[t] >> shift) == k;
   Last last = kTwoHit ? -window : 0;
   bool flag = false;
   for (int p0 = p;;) {
-    // every load of the group is made, at a valid address (the last
-    // position, index 0), so that none waits behind a branch
-    bool in[kGroup];
-    long long idx[kGroup];
+    int idx[kGroup], s[kGroup], e[kGroup], run[kGroup];
+    unsigned pass = 0;    // bit t: seed t meets its cutoff
 #pragma unroll
     for (int t = 0; t < kGroup; ++t) {
-      const long long q = p0 + t < n ? p0 + t : n - 1;
-      const long long o = __ldg(order + q);
-      in[t] = p0 + t < n && __ldg(key + q) == k;
-      idx[t] = in[t] ? o : 0;
-    }
-    int s[kGroup], e[kGroup], run[kGroup];
-    bool pass[kGroup];
-#pragma unroll
-    for (int t = 0; t < kGroup; ++t) {
+      idx[t] = t < m ? oq[t] : 0;
       s[t] = __ldg(s_loc + idx[t]);
       e[t] = __ldg(end_loc + idx[t]);
-      pass[t] = __ldg(score + idx[t]) >= __ldg(cutoff + idx[t]);
+      pass |= (unsigned)(__ldg(score + idx[t]) >= __ldg(cutoff + idx[t]))
+              << t;
       if (kTwoHit)
         run[t] = right_run != nullptr ? __ldg(right_run + idx[t]) : 0;
     }
 #pragma unroll
     for (int t = 0; t < kGroup; ++t) {
-      if (in[t] && s[t] >= last) {
+      if (t < m && s[t] >= last) {
         Last word_end = (Last)s[t] + word;
         bool ready = true;
         if (kTwoHit && (flag || word_end > last + window)) {
           word_end += run[t];
           ready = run[t] >= word;
         }
-        const bool save = ready && pass[t];
+        const bool save = ready && (pass >> t & 1u);
         if (save) saved[idx[t]] = 1;
         last = save ? (Last)e[t] : word_end;
         flag = save;
       }
     }
     // keys ascend, so the segment ended at the first position not in it
-    if (!in[kGroup - 1]) break;
+    if (m < kGroup) break;
     p0 += kGroup;
     if ((long long)last - s[kGroup - 1] > kJumpBases)
-      p0 = next_stop(key, order, s_loc, n, k, last, p0);
+      p0 = next_stop(key, order, s_loc, n, shift, k, last, p0);
+    m = fetch_group(key, order, n, shift, k, p0, oq);
   }
 }
 
@@ -185,15 +224,17 @@ diag_replay_kernel(const long long* __restrict__ key,
                    const int32_t* __restrict__ s_loc,
                    const int32_t* __restrict__ end_loc,
                    const int32_t* __restrict__ score,
-                   const int32_t* __restrict__ cutoff, int n, int word,
-                   uint8_t* __restrict__ saved) {
+                   const int32_t* __restrict__ cutoff, int n, int shift,
+                   int word, uint8_t* __restrict__ saved) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p < n)
-    walk<false>(key, order, s_loc, end_loc, score, cutoff, nullptr, n, word,
-                0, p, saved);
+    walk<false>(key, order, s_loc, end_loc, score, cutoff, nullptr, n,
+                shift, word, 0, p, saved);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// at least three blocks a SM (the int64 state and the runs take more
+// registers than the one-hit kernel's)
+__global__ void __launch_bounds__(kThreads, 3)
 diag_replay_two_hit_kernel(const long long* __restrict__ key,
                            const long long* __restrict__ order,
                            const int32_t* __restrict__ s_loc,
@@ -201,12 +242,12 @@ diag_replay_two_hit_kernel(const long long* __restrict__ key,
                            const int32_t* __restrict__ score,
                            const int32_t* __restrict__ cutoff,
                            const int32_t* __restrict__ right_run, int n,
-                           int word, int window,
+                           int shift, int word, int window,
                            uint8_t* __restrict__ saved) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p < n)
     walk<true>(key, order, s_loc, end_loc, score, cutoff, right_run, n,
-               word, window, p, saved);
+               shift, word, window, p, saved);
 }
 
 }  // namespace
@@ -218,7 +259,8 @@ extern "C" int gblastn_diag_replay(const void* key, const void* order,
                                    const void* s_loc, const void* end_loc,
                                    const void* score, const void* cutoff,
                                    const void* right_run, int n, int word,
-                                   int window, void* saved, void* stream) {
+                                   int window, int key_shift, void* saved,
+                                   void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
   if (window > 0)
@@ -227,12 +269,13 @@ extern "C" int gblastn_diag_replay(const void* key, const void* order,
         (const long long*)key, (const long long*)order,
         (const int32_t*)s_loc, (const int32_t*)end_loc,
         (const int32_t*)score, (const int32_t*)cutoff,
-        (const int32_t*)right_run, n, word, window, (uint8_t*)saved);
+        (const int32_t*)right_run, n, key_shift, word, window,
+        (uint8_t*)saved);
   else
     diag_replay_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const long long*)key, (const long long*)order,
         (const int32_t*)s_loc, (const int32_t*)end_loc,
-        (const int32_t*)score, (const int32_t*)cutoff, n, word,
+        (const int32_t*)score, (const int32_t*)cutoff, n, key_shift, word,
         (uint8_t*)saved);
   return (int)cudaGetLastError();
 }

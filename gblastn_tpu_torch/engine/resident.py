@@ -37,6 +37,7 @@ class ResidentDB:
     subject_w: torch.Tensor     # int64[S/16] 16-base words
     starts: torch.Tensor        # int64[num_seqs] subject starts
     ends: torch.Tensor          # int64[num_seqs] subject ends
+    longest: int                # the longest subject's length, in bases
 
     @property
     def length(self) -> int:
@@ -74,6 +75,7 @@ def resident_from_reference(db: SequenceDB,
         subject_w=pack_subject_words(packed),
         starts=starts,
         ends=ends,
+        longest=int(np.max(db.lengths, initial=1)),
     )
     cache[device] = res
     return res

@@ -445,21 +445,26 @@ def gate_inputs(dev: SeedingDeviceData, k1_args, ctx, ung) -> tuple:
 
 
 def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
-                  concat_end: int) -> tuple:
+                  concat_end: int) -> tuple[tuple, int]:
     """The arguments of ``diag_replay`` (key, order, s_loc, end_loc,
     score, cutoff) for the seeds of ``g_args`` (``gate_inputs``) and their
-    extension ``rows`` (q_start, s_start, length, score) after the gate:
-    subject-local coordinates, the keys sorted by ``replay_keys`` with the
-    diagonal mask of the batch's concatenated query length and window."""
+    extension ``rows`` (q_start, s_start, length, score) after the gate,
+    and its ``key_shift``: subject-local coordinates, the keys sorted by
+    ``replay_keys`` with the diagonal mask of the batch's concatenated
+    query length and window, and the batch's bounds (subject count,
+    longest subject, query buffer), one sort where they fit 63 bits."""
+    res = dev.resident
     qs, ss, ctx32, oid32 = g_args[6:10]
     _uq, us, ulen, usc = rows
-    base = dev.resident.starts[oid32.long()]
+    base = res.starts[oid32.long()]
     s_loc = (ss - base).to(torch.int32)
     end_loc = (us - base + ulen).to(torch.int32)
-    key, order = replay_keys(qs, s_loc, oid32,
-                             diag_table_mask(concat_end - 1, dev.window))
+    key, order, shift = replay_keys(
+        qs, s_loc, oid32, diag_table_mask(concat_end - 1, dev.window),
+        n_sub=res.starts.numel(), s_len=res.longest,
+        q_len=dev.query_packed.numel())
     return (key, order, s_loc, end_loc, usc,
-            dev.ctx_tables[0][ctx32.long()])
+            dev.ctx_tables[0][ctx32.long()]), shift
 
 
 def run_inputs(dev: SeedingDeviceData, k1_args, g_args,
@@ -503,10 +508,9 @@ def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
         head.append((g_flags & GATE_FLAG_RANGE).amax())
     else:
         head.append(n_need)
-    saved = diag_replay(*replay_inputs(dev, g_args, rows,
-                                       concat_end=concat_end),
-                        word_size=word_size, window=dev.window,
-                        right_run=runs)
+    r_args, shift = replay_inputs(dev, g_args, rows, concat_end=concat_end)
+    saved = diag_replay(*r_args, word_size=word_size, window=dev.window,
+                        right_run=runs, key_shift=shift)
     rows = torch.stack([*g_args[6:8], g_args[8], *rows, g_args[9]])
     keep = torch.nonzero(saved).squeeze(1)
     return rows, torch.stack(head), keep

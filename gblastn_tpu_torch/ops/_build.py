@@ -156,7 +156,7 @@ def load():
         fn.argtypes = (
             [ctypes.c_void_p] * 7        # key, order, s_loc, end_loc,
                                          # score, cutoff, right_run
-            + [ctypes.c_int] * 3         # n, word, window
+            + [ctypes.c_int] * 4         # n, word, window, key_shift
             + [ctypes.c_void_p] * 2      # saved, stream
         )
         fn = lib.gblastn_right_run               # RR

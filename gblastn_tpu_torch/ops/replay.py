@@ -252,32 +252,75 @@ def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
     return outs
 
 
-def replay_keys(q_off, s_loc, oid, diag_mask: int):
-    """(key, order): the seeds' primary keys (oid << 32 | masked diagonal +
-    2^31, int64) in replay order, and that order as indices (int64). Two
-    stable sorts, the secondary key (s_loc << 32 | q) first, so ties fall
-    back to (s, q) and then to the seed's index, as the host's stable
-    ``np.lexsort((q, s, diag, oid))`` orders them. ``s_loc`` is
-    subject-local, so every value fits its 32 bits (the resident bound)."""
+def key_layout(n_sub: int, s_len: int, q_len: int, diag_mask: int):
+    """(diagonal bits, s bits, q bits) of the one-sort replay key, or None
+    where it needs more than 63 bits. Most significant first, the key
+    holds the oid (< ``n_sub``), the masked diagonal (``(s - q) & mask``
+    with a mask, else ``s - q + q_len - 1``, so it is not negative), the
+    subject-local s (< ``s_len``) and, only with a mask, q (< ``q_len``):
+    without one, q = s - diagonal follows from the fields before it."""
+    def bits(v):
+        return max(int(v), 0).bit_length()
+
+    b_o, b_s = bits(n_sub - 1), bits(s_len - 1)
+    if diag_mask:
+        b_d, b_q = bits(diag_mask), bits(q_len - 1)
+    else:
+        b_d, b_q = bits(s_len + q_len - 2), 0
+    return None if b_o + b_d + b_s + b_q > 63 else (b_d, b_s, b_q)
+
+
+def replay_keys(q_off, s_loc, oid, diag_mask: int, *, n_sub: int,
+                s_len: int, q_len: int, two_sorts: bool = False):
+    """(key, order, key_shift): the seeds in replay order, stable, as the
+    host's ``np.lexsort((q, s, diag, oid))`` orders them: by (oid, masked
+    diagonal, s, q), ties by index. ``order`` holds the seeds' indices
+    (int64), ``key`` the sorted keys, and ``key >> key_shift`` is equal
+    exactly within a segment (one oid and masked diagonal).
+
+    Every oid lies in [0, n_sub), every subject-local s in [0, s_len)
+    and every q_off in [0, q_len) (the batch's subject count, longest
+    subject and query buffer; checked on CPU tensors, where a value out of
+    its bound raises ValueError: its field would overwrite the next).
+    Where ``key_layout`` fits 63 bits, one stable sort of the packed key
+    (``key_shift`` = the bits of s and q); else (or with ``two_sorts``)
+    two stable sorts, the secondary key (s << 32 | q) first, then the
+    primary (oid << 32 | masked diagonal + 2^31; ``key_shift`` 0)."""
     q = q_off.long()
     s = s_loc.long()
+    if q.device.type == "cpu" and q.numel():
+        for name, v, bound in (("oid", oid, n_sub), ("s", s, s_len),
+                               ("q", q, q_len)):
+            if int(v.min()) < 0 or int(v.max()) >= bound:
+                raise ValueError(f"replay_keys: {name} outside [0, {bound})")
+    layout = (None if two_sorts
+              else key_layout(n_sub, s_len, q_len, diag_mask))
+    if layout is not None:
+        b_d, b_s, b_q = layout
+        d = (s - q) & diag_mask if diag_mask else s - q + (q_len - 1)
+        key = (((oid.long() << b_d) | d) << b_s) | s
+        if b_q:
+            key = (key << b_q) | q
+        key, order = torch.sort(key, stable=True)
+        return key, order, b_s + b_q
     diag = s - q
     if diag_mask:
         diag = diag & diag_mask
     key = (oid.long() << 32) | (diag + (1 << 31))
     o1 = torch.sort((s << 32) | q, stable=True).indices
     key, o2 = torch.sort(key[o1], stable=True)
-    return key, o1[o2]
+    return key, o1[o2], 0
 
 
 def diag_replay_ref(key, order, s_loc, end_loc, score, cutoff, *,
-                    word_size: int, window: int = 0, right_run=None):
+                    word_size: int, window: int = 0, right_run=None,
+                    key_shift: int = 0):
     """Plain PyTorch version of R (same arguments and result as
     ``diag_replay``), by state jumping: every segment (a run of equal
-    keys) holds its current seed, which the machine processes (it is
-    never skipped); the next one is the first later seed of the segment
-    with s >= last_hit, found for all segments at once by one
-    ``searchsorted`` over (segment, s), which ascends."""
+    ``key >> key_shift``) holds its current seed, which the machine
+    processes (it is never skipped); the next one is the first later
+    seed of the segment with s >= last_hit, found for all segments at
+    once by one ``searchsorted`` over (segment, s), which ascends."""
     n = key.numel()
     dev = key.device
     saved_sorted = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -289,7 +332,8 @@ def diag_replay_ref(key, order, s_loc, end_loc, score, cutoff, *,
         run = (right_run.long()[order] if right_run is not None and window
                else torch.zeros_like(s))
         head = torch.ones(n, dtype=torch.bool, device=dev)
-        head[1:] = key[1:] != key[:-1]
+        seg_key = key >> key_shift
+        head[1:] = seg_key[1:] != seg_key[:-1]
         seg = torch.cumsum(head, 0) - 1
         comb = (seg << 32) + s
         cur = torch.nonzero(head).squeeze(1)
@@ -422,11 +466,13 @@ approx_gate.captured = 0
 
 
 def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
-                word_size: int, window: int = 0, right_run=None):
+                word_size: int, window: int = 0, right_run=None,
+                key_shift: int = 0):
     """R: the one-hit (``window`` 0) or two-hit replay over seeds in
     replay order.
 
-    key and order int64[n] from ``replay_keys``; int32[n] per seed (in
+    key, order and key_shift from ``replay_keys`` (a segment is a run of
+    equal ``key >> key_shift``); int32[n] per seed (in
     the original order): s_loc (subject-local seed start), end_loc (the
     subject-local end of its ungapped extension, after G), score (after
     G) and cutoff; for two-hit, ``right_run`` (RR's, or None for runs of
@@ -439,7 +485,7 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     runs = () if right_run is None or not window else (right_run,)
     if all(t.device.type == "cpu" for t in tensors + runs):
         return diag_replay_ref(*tensors, word_size=word_size, window=window,
-                               right_run=right_run)
+                               right_run=right_run, key_shift=key_shift)
     dev = key.device
     if dev.type != "cuda":
         raise ValueError(f"diag_replay: no kernel for {dev}")
@@ -452,15 +498,16 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     if any(t.numel() != n for t in tensors + runs) or n >= 2**31:
         raise ValueError("diag_replay: arrays of different lengths, or "
                          "too many seeds for one launch")
-    if not 0 <= window < 2**30:
-        raise ValueError(f"diag_replay: window {window} out of range")
+    if not 0 <= window < 2**30 or not 0 <= key_shift < 64:
+        raise ValueError(f"diag_replay: window {window} or key_shift "
+                         f"{key_shift} out of range")
     saved = torch.zeros(n, dtype=torch.uint8, device=dev)   # R writes 1s
     if n == 0:
         return saved
     _g, fn, _rr, raw_stream, capturing = _lib_fns or _bind()
     args = (*(t.data_ptr() for t in tensors),
             right_run.data_ptr() if runs else None, n, word_size, window,
-            saved.data_ptr(), raw_stream(dev.index))
+            key_shift, saved.data_ptr(), raw_stream(dev.index))
     _launch(fn, dev, args, "diag_replay")
     if capturing():
         diag_replay.captured += 1

@@ -16,17 +16,21 @@ kernel from a CUDA graph of 100 (``tools.timing.graph_ms``):
   * K1's wrapper at config 1's and config 2's seeds, held bit-equal to
     its plain version, beside its wrapper call (CUDA events); with
     ``--parent DIR`` DIR's K1 (its ``csrc/ungapped_xdrop.cu``, built
-    alone and launched through its C entry, the one without ranges),
-    held bit-equal too and timed in the same turns: parent, this tree,
-    this tree, parent;
+    alone and launched through its C entry, which takes the query's and
+    the subject's lengths), held bit-equal too and timed in the same
+    turns: parent, this tree, this tree, parent;
   * the device finish's G and R (ops/replay.py) at config 1's and config
     2's search-path inputs (``tools.replay_sets.batch_cases``), and with
     two-hit seeding at configs 1w, 2w and 2d (``prof_e2e``'s: window 40;
     dc-megablast), with RR at config 1w (the one of them that probes
     double words; ``batch_run_case``), each held bit-equal to its plain
-    version and timed as one launch alone and as a wrapper call, with the
-    two ``torch.sort`` calls that order R's seeds (``replay_keys``) timed
-    beside them.
+    version and timed as one launch alone and as a wrapper call, with
+    ``replay_keys``' two forms that order R's seeds (one sort of the
+    packed key, two sorts) timed beside them; with ``--parent DIR`` DIR's
+    G and R (its ``csrc/approx_gate.cu`` and ``csrc/diag_replay.cu``,
+    each built alone and launched through its C entry; R on the two-sort
+    order), held bit-equal too and timed in the same turns. G and R come
+    first.
 
 Run on the card:
     python -m gblastn_tpu_torch.tools.prof_launch [--parent DIR]
@@ -104,6 +108,7 @@ def search_shapes(dev):
     from gblastn_tpu_torch.tools.prof_e2e import config_options
     from gblastn_tpu_torch.tools.replay_sets import (
         batch_cases,
+        batch_key_case,
         batch_run_case,
     )
     from gblastn_tpu_torch.tools.workloads import config2d_reads
@@ -111,27 +116,32 @@ def search_shapes(dev):
     reads1 = [FastaRecord(n, "", s) for n, s in pairs]
     reads2d = [FastaRecord(n, "", s)
                for n, s in config2d_reads(genome)[0]]
-    finish = {"config1": (batch_cases(b1), None),
-              "config2": (batch_cases(b2), None)}
+
+    def case(b):
+        c = batch_cases(b)
+        return c, batch_run_case(b), batch_key_case(b, *c[:3])
+    finish = {"config1": case(b1), "config2": case(b2)}
     for name, reads in (("config1w", reads1), ("config2w", reads2),
                         ("config2d", reads2d)):
-        b = setup_batch(reads, db, config_options(name), dev)
-        finish[name] = (batch_cases(b), batch_run_case(b))
+        finish[name] = case(setup_batch(reads, db, config_options(name),
+                                        dev))
     return k1_c1, k1_c2, k2, finish
 
 
-def finish_times(cases, label):
+def finish_times(cases, label, parent=None):
     """RR (where the case has it), G and R at each case of
-    ``search_shapes``' fourth item: bit-equal to their plain versions, one
-    launch alone (a CUDA graph of 100) and a wrapper call, and the two
-    stable ``torch.sort`` calls of ``replay_keys`` that order R's seeds (a
+    ``search_shapes``' fourth item, each held bit-equal to its plain
+    version: RR one launch alone (a CUDA graph of 100) and a wrapper call;
+    G and R one launch alone, this tree's wrapper and, with ``parent``
+    (``parent_finish``' libraries), the parent's kernels through their C
+    entries (R on the two-sort order its entry takes), in the turns
+    parent, this, this, parent; their wrapper calls; and ``replay_keys``' one-sort and two-sort forms (a
     call, CUDA events). Prints a line a case and returns (records, all
     bit-equal)."""
-    from gblastn_tpu_torch.engine.seeding import diag_table_mask
     from gblastn_tpu_torch.ops import replay as rp
 
     rec, ok = {}, True
-    for name, ((g_args, g_kw, r_args, r_kw), run_case) in cases.items():
+    for name, ((g_args, g_kw, r_args, r_kw), run_case, keys) in cases.items():
         rr_note = ""
         if run_case is not None:
             a, kw = run_case
@@ -147,29 +157,136 @@ def finish_times(cases, label):
                        f"bit-equal {same}")
         g_want = rp.approx_gate_ref(*g_args, **g_kw)
         r_want = rp.diag_replay_ref(*r_args, **r_kw)
-        g_same = _same(rp.approx_gate(*g_args, **g_kw), g_want)
-        r_same = torch.equal(rp.diag_replay(*r_args, **r_kw), r_want)
+        k_args, k_kw = keys
+        two = rp.replay_keys(*k_args, **k_kw, two_sorts=True)
+        g_launch, r_launch = {}, {}
+        g_outs = {"this": []}
+        r_outs = {"this": []}
+
+        def g_this():
+            g_outs["this"][:] = rp.approx_gate(*g_args, **g_kw)
+
+        def r_this():
+            r_outs["this"][:] = [rp.diag_replay(*r_args, **r_kw)]
+        if parent is not None:
+            g_launch["parent"], g_outs["parent"] = gate_c_launch(
+                parent["g"], g_args, g_kw)
+            r_launch["parent"], r_outs["parent"] = replay_c_launch(
+                parent["r"], parent["r_shift"], two[:2] + r_args[2:],
+                r_kw, 0)
+        g_launch["this"], r_launch["this"] = g_this, r_this
+        g_ms = turns(g_launch, (rp.approx_gate,))
+        r_ms = turns(r_launch, (rp.diag_replay,))
+        torch.cuda.synchronize()
+        g_same = all(_same(o, g_want) for o in g_outs.values())
+        r_same = all(_same(o, (r_want,)) for o in r_outs.values())
         ok &= g_same and r_same
-        g_one = graph_ms(lambda: rp.approx_gate(*g_args, **g_kw),
-                         counted=(rp.approx_gate,))
-        r_one = graph_ms(lambda: rp.diag_replay(*r_args, **r_kw),
-                         counted=(rp.diag_replay,))
         g_call = call_ms(lambda: rp.approx_gate(*g_args, **g_kw), 20, "cuda")
         r_call = call_ms(lambda: rp.diag_replay(*r_args, **r_kw), 20, "cuda")
-        mask = diag_table_mask(g_kw["concat_end"] - 1, r_kw["window"])
-        sort = call_ms(lambda: rp.replay_keys(g_args[6], r_args[2],
-                                              g_args[9], mask), 20, "cuda")
+        sort_one = call_ms(lambda: rp.replay_keys(*k_args, **k_kw), 20,
+                           "cuda")
+        sort_two = call_ms(
+            lambda: rp.replay_keys(*k_args, **k_kw, two_sorts=True), 20,
+            "cuda")
         n = g_args[6].numel()
-        rec[name] = {"seeds": n, "gate_ms_graph": g_one,
-                     "gate_ms_call": g_call, "replay_ms_graph": r_one,
-                     "replay_ms_call": r_call, "sort_ms_call": sort,
+        rec[name] = {"seeds": n, "gate_ms_graph": g_ms,
+                     "gate_ms_call": g_call, "replay_ms_graph": r_ms,
+                     "replay_ms_call": r_call, "sort_ms_call": sort_one,
+                     "sort_two_ms_call": sort_two,
+                     "key_shift": r_kw["key_shift"],
                      "bit_equal": bool(g_same and r_same)}
         print(f"finish {name}: {n} seeds, window {r_kw['window']}; G one "
-              f"launch {g_one:.4f} ms, a call {g_call:.4f}; R one launch "
-              f"{r_one:.4f} ms, a call {r_call:.4f}; replay_keys (two "
-              f"torch.sort) {sort:.4f} ms a call; bit-equal "
-              f"{g_same and r_same}{rr_note}  [{label}]", flush=True)
+              f"launch {_fmt(g_ms)} ms, a call {g_call:.4f}; R one launch "
+              f"{_fmt(r_ms)} ms, a call {r_call:.4f}; replay_keys one sort "
+              f"{sort_one:.4f} ms a call (key_shift {r_kw['key_shift']}), "
+              f"two sorts {sort_two:.4f}; bit-equal {g_same and r_same}"
+              f"{rr_note}  [{label}]", flush=True)
     return rec, ok
+
+
+def _fmt(ms):
+    return ", ".join(f"{w} " + " / ".join(f"{t:.4f}" for t in v)
+                     for w, v in ms.items())
+
+
+def turns(launches, counted):
+    """One launch alone (ms, from a CUDA graph of 100) of each of
+    ``launches`` ({name: fn}), in the turns given by their order and then
+    the reverse (parent, this, ..., this, parent): {name: [ms, ms]}.
+    ``counted`` are the wrappers whose launches "this" counts."""
+    order = list(launches)
+    ms = {}
+    for who in order + order[::-1]:
+        ms.setdefault(who, []).append(graph_ms(
+            launches[who], counted=counted if who == "this" else ()))
+    return ms
+
+
+_GATE_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p] * 6)
+
+
+def gate_c_launch(lib, args, kw):
+    """fn() launching G through the C entry of ``lib`` (a library from
+    ``_build.build_one``: the parent's kernel or a variant of this
+    tree's; the entry's arguments are the wrapper's) on the current
+    stream, and its five outputs."""
+    fn = lib.gblastn_approx_gate
+    fn.restype = ctypes.c_int
+    fn.argtypes = _GATE_ARGTYPES
+    qbytes, packed, _tab, ctx_tables, sub_starts = args[:5]
+    n = args[6].numel()
+    dev = qbytes.device
+    outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
+    runs = kw.get("right_run")
+    ptrs = (*(t.data_ptr() for t in args),
+            runs.data_ptr() if runs is not None else None, qbytes.numel(),
+            packed.numel(), ctx_tables.shape[1], sub_starts.numel(), n,
+            kw["word_size"], kw["concat_end"], *(o.data_ptr() for o in outs))
+
+    def launch():
+        rc = fn(*ptrs, _raw_stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"G launch failed: CUDA error {rc}")
+    return launch, outs
+
+
+def replay_c_launch(lib, takes_shift, args, kw, key_shift):
+    """fn() launching R through the C entry of ``lib`` (the parent's
+    kernel, a library from ``_build.build_one``) on the current stream,
+    and its saved output (in a list). ``takes_shift``: the entry takes
+    key_shift (a segment is a run of equal key >> key_shift), else it is
+    one that compares whole keys (over the two-sort order)."""
+    fn = lib.gblastn_diag_replay
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * (4 if takes_shift else 3)
+                   + [ctypes.c_void_p] * 2)
+    n = args[0].numel()
+    dev = args[0].device
+    window = kw.get("window", 0)
+    runs = kw.get("right_run") if window else None
+    saved = torch.zeros(n, dtype=torch.uint8, device=dev)
+    ptrs = (*(t.data_ptr() for t in args),
+            runs.data_ptr() if runs is not None else None,
+            n, kw["word_size"], window,
+            *((key_shift,) if takes_shift else ()))
+
+    def launch():
+        saved.zero_()
+        rc = fn(*ptrs, saved.data_ptr(), _raw_stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"R launch failed: CUDA error {rc}")
+    return launch, [saved]
+
+
+def parent_finish(src):
+    """The parent's G and R (``parent_sources``' "g" and "r"), each built
+    alone: {"g": library, "r": library, "r_shift": whether its R entry
+    takes key_shift and scratch}."""
+    return {"g": _build.build_one(src["g"], "approx_gate_parent"),
+            "r": _build.build_one(src["r"], "diag_replay_parent"),
+            "r_shift": "key_shift" in Path(src["r"]).read_text()}
 
 
 def longest_job(jobs, q_len, s_len, rows):
@@ -184,10 +301,12 @@ def longest_job(jobs, q_len, s_len, rows):
 
 def parent_sources(parent: Path) -> dict[str, Path]:
     """The parent checkout's kernel sources that ``--parent`` builds:
-    {"k1": ungapped_xdrop.cu, "k2": gapped_band.cu}. FileNotFoundError
-    names a missing one before anything is built or launched."""
+    {"k1": ungapped_xdrop.cu, "k2": gapped_band.cu, "g": approx_gate.cu,
+    "r": diag_replay.cu}. FileNotFoundError names a missing one before
+    anything is built or launched."""
     csrc = Path(parent) / "gblastn_tpu_torch" / "csrc"
-    out = {"k1": csrc / "ungapped_xdrop.cu", "k2": csrc / "gapped_band.cu"}
+    out = {"k1": csrc / "ungapped_xdrop.cu", "k2": csrc / "gapped_band.cu",
+           "g": csrc / "approx_gate.cu", "r": csrc / "diag_replay.cu"}
     for path in out.values():
         if not path.is_file():
             raise FileNotFoundError(f"--parent: no {path}")
@@ -196,11 +315,12 @@ def parent_sources(parent: Path) -> dict[str, Path]:
 
 def k1_parent_launch(lib, args):
     """fn() launching the parent commit's K1 (a library from
-    ``_build.build_one``; its C entry takes no ranges) on the
-    current stream, and its five outputs."""
+    ``_build.build_one``; its C entry takes the query's and the subject's
+    lengths, as this tree's does) on the current stream, and its five
+    outputs."""
     fn = lib.gblastn_ungapped_xdrop
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 6)
     dev = args[0].device
     n = args[3].numel()
@@ -209,7 +329,8 @@ def k1_parent_launch(lib, args):
     optrs = [o.data_ptr() for o in outs]
 
     def launch():
-        rc = fn(*ptrs, n, *optrs, _raw_stream(dev))
+        rc = fn(*ptrs, n, args[0].numel(), args[1].numel(), *optrs,
+                _raw_stream(dev))
         if rc != 0:
             raise RuntimeError(f"parent K1 launch failed: CUDA error {rc}")
     return launch, outs
@@ -230,14 +351,9 @@ def k1_turns(args, parent=None):
     def launch():
         last[:] = ung.ungapped_extend_window(*args)
     launches["this"] = launch
-    order = list(launches)
-    ms = {}
-    for who in order + order[::-1]:
-        counted = () if who == "parent" else (ung.ungapped_extend_window,)
-        ms.setdefault(who, []).append(
-            graph_ms(launches[who], counted=counted))
+    ms = turns(launches, (ung.ungapped_extend_window,))
     torch.cuda.synchronize()
-    same = all(_same(outs[w], want) for w in order)
+    same = all(_same(o, want) for o in outs.values())
     return ms, same
 
 
@@ -276,8 +392,8 @@ def main(argv=None) -> int:
         prog="python -m gblastn_tpu_torch.tools.prof_launch",
         description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout whose K1 and K2 to time beside this "
-                         "tree's")
+                    help="a checkout whose K1, K2, G and R to time beside "
+                         "this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_launch: needs a CUDA card", file=sys.stderr)
@@ -289,7 +405,9 @@ def main(argv=None) -> int:
     ok = True
 
     k1_c1, k1_c2, (k2_args, k2_kw), finish = search_shapes(dev)
-    fin, same = finish_times(finish, label)
+    fin, same = finish_times(
+        finish, label,
+        parent_finish(parent_sources(args.parent)) if args.parent else None)
     rec["finish"] = fin
     ok &= same
     q, s2, mat, kw_pg, sets = prof_gapped.workload(dev, n_sets=1)
@@ -313,36 +431,26 @@ def main(argv=None) -> int:
         call = call_ms(lambda: ung.ungapped_extend_window(*a), 20, "cuda")
         rec[f"k1_{name}"] = {"seeds": n, "ms_graph": one, "ms_call": call,
                              "bit_equal": same}
-        print(f"k1 {name}: {n} seeds, one launch "
-              + ", ".join(f"{w} " + " / ".join(
-                  f"{t:.4f}" for t in v) for w, v in one.items())
-              + f" ms; wrapper call {call:.4f} ms; bit-equal {same}  "
-              f"[{label}]", flush=True)
+        print(f"k1 {name}: {n} seeds, one launch {_fmt(one)} ms; wrapper "
+              f"call {call:.4f} ms; bit-equal {same}  [{label}]", flush=True)
 
     for name, (a, kw) in k2_cases.items():
         want = og.banded_gapped_scores(*a, **kw)
         launches = {"this": lambda: og.banded_gapped_scores(*a, **kw)}
-        turns = ["this", "this"]
         if parent_k2 is not None:
             launch, out = k2_launch(parent_k2, a, kw)
             launch()
             same = _same(out, want)
             ok &= same
             print(f"k2 {name} parent: bit-equal {same}", flush=True)
-            launches["parent"] = launch
-            turns = ["parent", "this", "this", "parent"]
-        one = {}
-        for who in turns:
-            counted = (og.banded_gapped_scores,) if who == "this" else ()
-            one.setdefault(who, []).append(
-                graph_ms(launches[who], counted=counted))
+            launches = {"parent": launch, **launches}
+        one = turns(launches, (og.banded_gapped_scores,))
         call = call_ms(lambda: og.banded_gapped_scores(*a, **kw), 20, "cuda")
         rec[f"k2_{name}"] = {"jobs": len(a[3]), "ms_graph": one,
                              "ms_call": call}
         print(f"k2 {name}: {len(a[3])} jobs, rows {kw['rows']}, one launch "
-              + ", ".join(f"{w} " + " / ".join(f"{t:.4f}" for t in v)
-                          for w, v in one.items())
-              + f" ms; wrapper call {call:.4f} ms  [{label}]", flush=True)
+              f"{_fmt(one)} ms; wrapper call {call:.4f} ms  [{label}]",
+              flush=True)
     rec["ok"] = bool(ok)
     print(json.dumps(rec))
     return 0 if ok else 1

@@ -69,9 +69,22 @@ def batch_cases(batch):
     word = kw["word_size"]
     g_kw = dict(word_size=word, concat_end=concat_end, right_run=runs)
     rows = approx_gate(*g_args, **g_kw)[:4] if word >= 11 else ung[:4]
-    r_args = replay_inputs(dev, g_args, rows, concat_end=concat_end)
+    r_args, shift = replay_inputs(dev, g_args, rows, concat_end=concat_end)
     return g_args, g_kw, r_args, dict(word_size=word, window=dev.window,
-                                      right_run=runs)
+                                      right_run=runs, key_shift=shift)
+
+
+def batch_key_case(batch, g_args, g_kw, r_args):
+    """``replay_keys``' (args, kw) for a batch's ``batch_cases``: K1's
+    q_off, R's subject-local s, the oid, the batch's diagonal mask, and
+    its bounds (subject count, longest subject, query buffer), as
+    ``engine.seeding.replay_inputs`` gives them."""
+    dev = batch.seed_dev
+    mask = diag_table_mask(g_kw["concat_end"] - 1, dev.window)
+    return ((g_args[6], r_args[2], g_args[9], mask),
+            dict(n_sub=dev.resident.starts.numel(),
+                 s_len=dev.resident.longest,
+                 q_len=dev.query_packed.numel()))
 
 
 def random_gate_case(device, n=65536, seed=4242):
@@ -142,6 +155,13 @@ def random_gate_case(device, n=65536, seed=4242):
     return args, dict(word_size=11, concat_end=Q - 1)
 
 
+def key_bounds(q, s, oid) -> dict:
+    """``replay_keys``' bounds (n_sub, s_len, q_len) of numpy seeds: one
+    past the largest oid, subject-local s and q."""
+    return dict(n_sub=int(oid.max()) + 1, s_len=int(s.max()) + 1,
+                q_len=int(q.max()) + 1)
+
+
 def _chains(rng, n, word, n_oid, chain_max, dense):
     q = np.zeros(n, np.int64)
     s = np.zeros(n, np.int64)
@@ -189,10 +209,11 @@ def random_replay_cases(device, n=262144, seed=777):
             return torch.from_numpy(np.ascontiguousarray(a[perm])).to(
                 device, torch.int32)
 
-        qt, st, ot = t(q), t(s), t(oid)
-        key, order = replay_keys(qt, st, ot, mask)
-        out.append((label, (key, order, st, t(end), t(score),
-                            t(np.full(n, 22))), dict(word_size=word)))
+        key, order, shift = replay_keys(t(q), t(s), t(oid), mask,
+                                        **key_bounds(q, s, oid))
+        out.append((label, (key, order, t(s), t(end), t(score),
+                            t(np.full(n, 22))),
+                    dict(word_size=word, key_shift=shift)))
     return out
 
 
@@ -341,8 +362,9 @@ def random_two_hit_cases(device, n=262144, seed=4040, window=40):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 device, torch.int32)
 
-        qt, st, ot = t(q), t(s), t(oid)
-        key, order = replay_keys(qt, st, ot, mask)
-        out.append((label, (key, order, st, t(end), t(score), t(cutoff)),
-                    dict(word_size=word, window=window, right_run=t(run))))
+        key, order, shift = replay_keys(t(q), t(s), t(oid), mask,
+                                        **key_bounds(q, s, oid))
+        out.append((label, (key, order, t(s), t(end), t(score), t(cutoff)),
+                    dict(word_size=word, window=window, right_run=t(run),
+                         key_shift=shift)))
     return out

@@ -27,6 +27,7 @@ from gblastn_tpu_torch.ops import replay as rp
 from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
 from gblastn_tpu_torch.params.derived import nucl_score_table_packed
 from gblastn_tpu_torch.params.options import blastn_options, megablast_options
+from gblastn_tpu_torch.tools.replay_sets import key_bounds
 
 # the plain versions run many small ops: on the CPU one thread beats a pool
 torch.set_num_threads(1)
@@ -252,11 +253,12 @@ def test_gate_flags_reads_out_of_range():
 def _replay(q, s, oid, end, score, cutoff, word, diag_mask):
     """R's plain version on numpy seeds (subject-local s): the saved
     mask."""
+    bounds = key_bounds(q, s, oid)
     q, s, oid, end, score, cutoff = (_t(a, torch.int32) for a in (
         q, s, oid, end, score, cutoff))
-    key, order = rp.replay_keys(q, s, oid, diag_mask)
-    return rp.diag_replay(key, order, s, end, score, cutoff,
-                          word_size=word).numpy().astype(bool)
+    key, order, shift = rp.replay_keys(q, s, oid, diag_mask, **bounds)
+    return rp.diag_replay(key, order, s, end, score, cutoff, word_size=word,
+                          key_shift=shift).numpy().astype(bool)
 
 
 def _replay_case(rng, n, *, word, n_oid=3, chain_max=30, dup=0.0):

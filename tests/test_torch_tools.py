@@ -197,17 +197,23 @@ def test_scan_parts_records_give_the_kernels_entry(capsys):
 
 
 def test_prof_launch_parent_sources(tmp_path):
-    """--parent names a checkout: its K1 and K2 sources, or a
-    FileNotFoundError that names the missing one before any build."""
+    """--parent names a checkout: its K1, K2, G and R sources, or a
+    FileNotFoundError that names the first missing one before any
+    build."""
     csrc = tmp_path / "gblastn_tpu_torch" / "csrc"
     csrc.mkdir(parents=True)
-    (csrc / "gapped_band.cu").write_text("")
-    with pytest.raises(FileNotFoundError, match="ungapped_xdrop.cu"):
-        prof_launch.parent_sources(tmp_path)
-    (csrc / "ungapped_xdrop.cu").write_text("")
+    names = {"k1": "ungapped_xdrop.cu", "k2": "gapped_band.cu",
+             "g": "approx_gate.cu", "r": "diag_replay.cu"}
+    for missing in ("ungapped_xdrop.cu", "approx_gate.cu", "diag_replay.cu"):
+        for f in names.values():
+            (csrc / f).write_text("")
+        (csrc / missing).unlink()
+        with pytest.raises(FileNotFoundError, match=missing):
+            prof_launch.parent_sources(tmp_path)
+    (csrc / "diag_replay.cu").write_text("")
     assert prof_launch.parent_sources(tmp_path) == {
-        "k1": csrc / "ungapped_xdrop.cu", "k2": csrc / "gapped_band.cu"}
-    assert set(prof_launch.parent_sources(REPO)) == {"k1", "k2"}
+        k: csrc / f for k, f in names.items()}
+    assert set(prof_launch.parent_sources(REPO)) == set(names)
 
 
 def test_batch_cases_replay_saves_what_run_seeding_keeps():
@@ -346,3 +352,33 @@ def test_chip_smoke_rr_work():
         want = 16 * len(q_off) + 8 * (len(qwords) + len(swords) + len(subs))
         assert want < chip_smoke.nbytes(*args)
         assert chip_smoke.rr_work(args, word, run) == (want, compares)
+
+
+def test_chip_smoke_finish_entry_sorts():
+    """The kernels line's approx_gate and diag_replay entries carry
+    replay_keys' one-sort and two-sort times from config 2's R record,
+    and ptxas' report names R's two kernels apart."""
+    import chip_smoke
+
+    def rec(ms, **extra):
+        return {"err": 0, "ms": ms, "plain_ms": 2.0, "bound_ms": 0.01,
+                "bound_by": "bytes", "ms_graph": ms / 2, **extra}
+
+    r2 = rec(0.03, sort_ms=0.2, sort_two_ms=0.45)
+    entry = chip_smoke.finish_entry(
+        "diag_replay", chip_smoke.R_SOURCE, chip_smoke.R_REPLACES,
+        {"config2": r2, "config1": rec(0.006)}, 3, {"config2_cli": 3},
+        {"diag_replay_kernel": 20}, sorts=r2)
+    assert entry["sort_ms"] == 0.2 and entry["sort_ms_two_sorts"] == 0.45
+    assert entry["ms_config1"] == 0.006 and entry["ms"] == 0.03
+    assert "sort_ms" not in chip_smoke.finish_entry(
+        "right_run", chip_smoke.RR_SOURCE, chip_smoke.RR_REPLACES,
+        {"config1w": rec(0.004)}, 1, {}, {}, main="config1w")
+    log = "== diag_replay.cu\n" + "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+        f"{len(k)}{k}EPKxPK4int4PKiS6_iiiiPh' for 'sm_90a'\n"
+        f"ptxas info    : Used {r} registers\n"
+        for k, r in (("diag_replay_kernel", 60),
+                     ("diag_replay_two_hit_kernel", 64)))
+    assert [k[1:3] for k in chip_smoke.ptxas_kernels(log)] == [
+        ("diag_replay_kernel", 60), ("diag_replay_two_hit_kernel", 64)]

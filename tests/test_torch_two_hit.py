@@ -95,10 +95,11 @@ def test_right_run_reads_nothing_for_a_bad_subject_index():
 def _two_hit(q, s, oid, end, score, cutoff, run, word, mask, window):
     """R's plain version on numpy seeds: the saved mask."""
     qt, st, ot = _t(q), _t(s), _t(oid)
-    key, order = rp.replay_keys(qt, st, ot, mask)
+    key, order, shift = rp.replay_keys(qt, st, ot, mask,
+                                       **replay_sets.key_bounds(q, s, oid))
     return rp.diag_replay(key, order, st, _t(end), _t(score), _t(cutoff),
-                          word_size=word, window=window,
-                          right_run=_t(run)).numpy().astype(bool)
+                          word_size=word, window=window, right_run=_t(run),
+                          key_shift=shift).numpy().astype(bool)
 
 
 @pytest.mark.parametrize("word,mask,dense", [
