@@ -10,8 +10,8 @@ without a spill), holds each against its plain PyTorch version on the
 card (K1, K2, G, R and RR also replayed from a CUDA graph that captured
 the wrapper, which fails if the wrapper waits on the card), times K1, K2,
 G, R and RR as one launch alone in a CUDA graph beside their wrapper
-calls,
-prints K1's modelled lockstep lane-steps against its walk steps and the
+calls (RR also beside an empty kernel's launch at its grid, the launch
+floor), prints K1's modelled lockstep lane-steps against its walk steps and the
 share of the walk steps on seeds the one-hit replay saves (configs 1 and
 2), holds the device finish (G, the approximate-ungapped gate, and R,
 the one-hit diagonal replay) to its plain versions at configs 1 and 2
@@ -21,8 +21,11 @@ times the order R reads (``replay_keys``: one stable sort of the packed
 key, which every search path must take, and the two-sort form beside
 it) and holds ``run_seeding`` on the card to the host finish
 ``_finish_init_hits`` (InitHits field by field, the bytes fetched beside
-the full fetch, the two finishes' times), and drives the port's paths
-end to end, each with
+the full fetch, the two finishes' times), checks at configs 1, 1w, 2w
+and 2d that nothing in the device finish waits on the card before its
+one ``nonzero`` and that an s past the bound R's sort packs it for
+raises ValueError at ``run_seeding``'s one fetch, and drives the port's
+paths end to end, each with
 every kernel's launch counter set to 0 just before it and read just
 after:
 
@@ -138,16 +141,19 @@ def bound(nbytes, ops):
 
 
 def _kernel_name(mangled):
-    """The name '<len><name>' ending in '_kernel' inside a mangled
-    symbol, else the symbol."""
+    """The shortest name '<len><name>' ending in '_kernel' inside a
+    mangled symbol, else the symbol. (The anonymous namespace's hash may
+    hold digits that read as the length of a longer name ending at the
+    same place.)"""
+    names = []
     for i, ch in enumerate(mangled):
         j = i
         while j < len(mangled) and mangled[j].isdigit():
             j += 1
             name = mangled[j: j + int(mangled[i:j])]
             if name.endswith("_kernel") and name.isidentifier():
-                return name
-    return mangled
+                names.append(name)
+    return min(names, key=len, default=mangled)
 
 
 def ptxas_kernels(log):
@@ -430,17 +436,20 @@ def rr_work(args, word, run):
 def compare_run(args, kw, label, card, reps):
     """RR against its plain version on the same CUDA tensors (also
     replayed from a CUDA graph that captured the wrapper), one launch
-    alone and a call timed; the runs' spread. Returns a dict."""
+    alone and a call timed, and an empty kernel's launch at the same grid
+    (the launch floor) in the same harness; the runs' spread. Returns a
+    dict."""
     import torch
 
     from gblastn_tpu_torch.ops import replay as rp
-    from gblastn_tpu_torch.tools.timing import call_ms
+    from gblastn_tpu_torch.tools.timing import call_ms, launch_floor_ms
 
     want = rp.right_run_ref(*args, **kw)
     err, ms_graph, ms = _timed(rp.right_run, args, kw, (rp.right_run,),
                                (want,), label, "RR", reps)
     plain_ms = call_ms(lambda: rp.right_run_ref(*args, **kw), 2, "cuda")
     n = args[3].numel()
+    floor_ms = launch_floor_ms(-(-n // 256))
     W = kw["word_size"]
     moved, compares = rr_work(args, W, want)
     bound_ms, by = bound(moved, RR_OPS_PER_BASE * compares)
@@ -450,10 +459,12 @@ def compare_run(args, kw, label, card, reps):
           f"base compares, {moved} bytes needed (of {nbytes(*args) + 4 * n}"
           f" in all the inputs and the output), bit-equal (also from a "
           f"graph); one launch "
-          f"{ms_graph:.4f} ms, a call {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"{ms_graph:.4f} ms (an empty kernel at the same grid "
+          f"{floor_ms:.4f} ms), a call {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({by})  [{card}]")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "ms_graph": ms_graph,
-            "bound_ms": bound_ms, "bound_by": by, "double_words": hist[W]}
+            "bound_ms": bound_ms, "bound_by": by, "double_words": hist[W],
+            "launch_floor_ms": floor_ms}
 
 
 def compare_finish(batch, label, card, reps, k1=None):
@@ -544,13 +555,60 @@ def compare_finish(batch, label, card, reps, k1=None):
     return g, r
 
 
+def check_finish_guards(batch, label, card):
+    """Two promises of the device finish on the card, at a batch's search
+    path: nothing in it waits on the card before its one ``nonzero``
+    (``device_finish`` runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``, which raises at any operation that synchronises; the
+    ``nonzero`` after it must raise there, which shows the mode is on),
+    and a subject-local s past the bound the sort packs it for (the
+    batch's longest subject, cut to 100 bases) raises ValueError at
+    ``run_seeding``'s one fetch, from the sort's range flag."""
+    import torch
+
+    from gblastn_tpu_torch.engine import seeding as es
+    from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+
+    dev, kw = batch.seed_dev, batch.seed_kw
+    ctx, k1_args, _n = es.ungapped_inputs(dev, **kw)
+    ung = ungapped_extend_window(*k1_args)
+    torch.cuda.synchronize()
+    waited = False
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _rows, head, saved = es.device_finish(dev, k1_args, ctx, ung, kw)
+        try:
+            torch.nonzero(saved)
+        except RuntimeError:
+            waited = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(waited, "the sync debug mode did not stop the nonzero")
+    check(int(head[3]) == 0, f"the sort's range flag is set on {label}")
+    res = dev.resident
+    longest, res.longest = res.longest, 100
+    raised = ""
+    try:
+        es.run_seeding(dev, **kw)
+    except ValueError as e:
+        raised = str(e)
+    finally:
+        res.longest = longest
+    check("s outside the bounds" in raised,
+          f"an s past the sort's bound did not raise on {label}: {raised!r}")
+    print(f"finish guards {label}: nothing waits before the nonzero "
+          f"(sync debug mode 'error'); an s past the sort's bound raised "
+          f"at the fetch: {raised}  [{card}]")
+
+
 def finish_entry(name, source, replaces, recs, launches, by_path,
                  registers, main="config2", sorts=None):
     """The kernels line's right_run, approx_gate or diag_replay entry:
     the ``main`` record's times and bound (config 2's; config 1w's for
-    RR), the other records' beside them; with ``sorts`` (a compare_replay
-    record) ``replay_keys``' one-sort and two-sort times as ``sort_ms``
-    and ``sort_ms_two_sorts``."""
+    RR), the other records' beside them (and each record's launch floor,
+    where it has one); with ``sorts`` (a compare_replay record)
+    ``replay_keys``' one-sort and two-sort times as ``sort_ms`` and
+    ``sort_ms_two_sorts``."""
     c2 = recs[main]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
@@ -559,13 +617,16 @@ def finish_entry(name, source, replaces, recs, launches, by_path,
              "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
              "library_ms": None, "ms_graph": c2["ms_graph"],
              "registers": registers, "launches_by_path": by_path}
+    if "launch_floor_ms" in c2:
+        entry["launch_floor_ms"] = c2["launch_floor_ms"]
     if sorts is not None:
         entry["sort_ms"] = sorts["sort_ms"]
         entry["sort_ms_two_sorts"] = sorts["sort_two_ms"]
     for tag, r in recs.items():
         if tag != main:
             entry.update({f"{k}_{tag}": r[k] for k in (
-                "ms", "plain_ms", "bound_ms", "ms_graph")})
+                "ms", "plain_ms", "bound_ms", "ms_graph", "launch_floor_ms")
+                if k in r})
     return entry
 
 
@@ -862,6 +923,7 @@ def main() -> int:
     # 3b. G and R at config 1's search-path inputs, and run_seeding
     # against the host finish
     g_c1, r_c1 = compare_finish(batch, "config-1 batch", card, 50, k1_c1)
+    check_finish_guards(batch, "config-1 batch", card)
     del batch, k1_args, ctx1
 
     # 4. K2 against its plain version on the card: random jobs of both
@@ -1201,6 +1263,7 @@ def main() -> int:
                                         card, 20)
         g2_recs[name], r2_recs[name] = compare_finish(b, f"{name} batch",
                                                       card, 20)
+        check_finish_guards(b, f"{name} batch", card)
         del b
     rr_rand = [compare_run(a, kw, label, card, 20)
                for label, a, kw in replay_sets.random_run_cases(dev)]

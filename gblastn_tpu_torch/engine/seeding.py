@@ -38,7 +38,9 @@ from gblastn_tpu_torch.ops.replay import (
     FLAG_RANGE as GATE_FLAG_RANGE,
     approx_gate,
     check_gate_flags,
+    check_key_flag,
     diag_replay,
+    key_range_flag,
     replay_keys,
     right_run,
 )
@@ -402,8 +404,9 @@ def run_seeding(
     """Seeding pass over the resident database: scan + mini and K1 on
     the device, the device finish (RR where it probes, G, R; one-hit or
     two-hit by ``dev.window``), one fetch of the saved seeds. A seed that
-    K1 or G flagged out of range raises ValueError at the fetch, before a
-    row is used."""
+    K1 or G flagged out of range, or a key field past the bound the sort
+    packed it for (``key_range_flag``), raises ValueError at the fetch,
+    before a row is used."""
     with slog.time("device.seeding.pipeline"):
         ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
         ung = ungapped_extend_window(*k1_args)
@@ -414,14 +417,16 @@ def run_seeding(
         z = np.zeros(0, dtype=np.int32)
         return InitHits(z, z, z, z, z, z, z, z)
     with slog.time("device.seeding.finish"):
-        rows, head, keep = device_finish(dev, k1_args, ctx, ung, scan_kw)
+        rows, head, saved = device_finish(dev, k1_args, ctx, ung, scan_kw)
+        keep = torch.nonzero(saved).squeeze(1)      # the one wait
     with slog.time("device.seeding.fetch"):
         out = torch.cat([head, rows[:, keep].reshape(-1)]).cpu().numpy()
     slog.add_value("seeding.fetch_bytes", out.nbytes)
     slog.add_value("seeding.gate_need", int(out[0]))
     check_flags(out[1:2])
     check_gate_flags(out[2:3])
-    q_np, s_np, c_np, uq, us, ulen, usc, oid = out[3:].reshape(8, -1)
+    check_key_flag(out[3:4])
+    q_np, s_np, c_np, uq, us, ulen, usc, oid = out[4:].reshape(8, -1)
     order = sort_by_score_order(usc, us, ulen, uq)
     return InitHits(q_off=q_np[order], s_off=s_np[order],
                     q_start=uq[order], s_start=us[order],
@@ -445,26 +450,31 @@ def gate_inputs(dev: SeedingDeviceData, k1_args, ctx, ung) -> tuple:
 
 
 def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
-                  concat_end: int) -> tuple[tuple, int]:
+                  concat_end: int) -> tuple[tuple, int, torch.Tensor]:
     """The arguments of ``diag_replay`` (key, order, s_loc, end_loc,
     score, cutoff) for the seeds of ``g_args`` (``gate_inputs``) and their
     extension ``rows`` (q_start, s_start, length, score) after the gate,
-    and its ``key_shift``: subject-local coordinates, the keys sorted by
-    ``replay_keys`` with the diagonal mask of the batch's concatenated
-    query length and window, and the batch's bounds (subject count,
-    longest subject, query buffer), one sort where they fit 63 bits."""
+    its ``key_shift``, and the sort's range flag: subject-local
+    coordinates, the keys sorted by ``replay_keys`` with the diagonal mask
+    of the batch's concatenated query length and window, and the batch's
+    bounds (subject count, longest subject, query buffer), one sort where
+    they fit 63 bits; ``key_range_flag`` of the seeds against those
+    bounds (an int32 on the device, nonzero where a field would overwrite
+    the next)."""
     res = dev.resident
     qs, ss, ctx32, oid32 = g_args[6:10]
     _uq, us, ulen, usc = rows
     base = res.starts[oid32.long()]
     s_loc = (ss - base).to(torch.int32)
     end_loc = (us - base + ulen).to(torch.int32)
+    bounds = dict(n_sub=res.starts.numel(), s_len=res.longest,
+                  q_len=dev.query_packed.numel())
     key, order, shift = replay_keys(
         qs, s_loc, oid32, diag_table_mask(concat_end - 1, dev.window),
-        n_sub=res.starts.numel(), s_len=res.longest,
-        q_len=dev.query_packed.numel())
-    return (key, order, s_loc, end_loc, usc,
-            dev.ctx_tables[0][ctx32.long()]), shift
+        **bounds)
+    return ((key, order, s_loc, end_loc, usc,
+             dev.ctx_tables[0][ctx32.long()]), shift,
+            key_range_flag(qs, s_loc, oid32, **bounds))
 
 
 def run_inputs(dev: SeedingDeviceData, k1_args, g_args,
@@ -481,16 +491,16 @@ def run_inputs(dev: SeedingDeviceData, k1_args, g_args,
 
 
 def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
-    """RR, G and R over K1's outputs on the seeds' device, for the scan
-    keywords ``scan_kw`` (``ungapped_inputs``'). Returns (rows, head,
-    keep): int32[8, n] rows (q_off, s_off, ctx, q_start, s_start,
-    length, score, oid; the extension after G), an int32[3] head (gated
-    seeds, K1's and G's FLAG_RANGE if any seed carries it, else 0) and
-    the indices of the saved seeds in ascending order. ``keep`` comes from
-    ``torch.nonzero``, the one wait on the card; nothing before it
-    waits. RR runs where ``run_inputs`` gives its arguments, and its runs
-    feed G and the two-hit R; G runs for word sizes of 11 and up, as the
-    reference scores approximately first only there; R is two-hit when
+    """RR, G, the sort and R over K1's outputs on the seeds' device, for
+    the scan keywords ``scan_kw`` (``ungapped_inputs``'); nothing here
+    waits on the card. Returns (rows, head, saved): int32[8, n] rows
+    (q_off, s_off, ctx, q_start, s_start, length, score, oid; the
+    extension after G), an int32[4] head (gated seeds; K1's and G's
+    FLAG_RANGE if any seed carries it, else 0; the sort's
+    ``key_range_flag``) and R's uint8[n] saved. RR runs where
+    ``run_inputs`` gives its arguments, and its runs feed G and the
+    two-hit R; G runs for word sizes of 11 and up, as the reference
+    scores approximately first only there; R is two-hit when
     ``dev.window`` > 0."""
     word_size = scan_kw["word_size"]
     concat_end = int(scan_kw["context_offsets"][dev.ctx_tables.shape[1]]) - 1
@@ -508,12 +518,13 @@ def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
         head.append((g_flags & GATE_FLAG_RANGE).amax())
     else:
         head.append(n_need)
-    r_args, shift = replay_inputs(dev, g_args, rows, concat_end=concat_end)
+    r_args, shift, key_flag = replay_inputs(dev, g_args, rows,
+                                            concat_end=concat_end)
+    head.append(key_flag)
     saved = diag_replay(*r_args, word_size=word_size, window=dev.window,
                         right_run=runs, key_shift=shift)
     rows = torch.stack([*g_args[6:8], g_args[8], *rows, g_args[9]])
-    keep = torch.nonzero(saved).squeeze(1)
-    return rows, torch.stack(head), keep
+    return rows, torch.stack(head), saved
 
 
 def _finish_init_hits(

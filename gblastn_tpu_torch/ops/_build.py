@@ -11,6 +11,7 @@ wrapper when it first sees a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -167,18 +168,24 @@ def load():
             + [ctypes.c_int] * 5         # Q8, S16, n_sub, n, word
             + [ctypes.c_void_p] * 2      # out, stream
         )
+        fn = lib.gblastn_empty_launch            # the launch floor
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]   # blocks, stream
         _lib = lib
     return _lib
 
 
 def build_one(source: Path, name: str) -> ctypes.CDLL:
     """One ``.cu`` source alone, compiled into
-    ``build/gblastn_tpu_torch/compare/<name>.so`` and loaded (unbound).
-    For the profilers' comparisons only (another commit's kernel); the
-    port's paths load ``load()``'s library."""
+    ``build/gblastn_tpu_torch/compare/<name>.<hash>.so`` and loaded
+    (unbound); the hash is the source text's, so sources of one name from
+    two checkouts never share a library. For the profilers' comparisons
+    only (another commit's kernel); the port's paths load ``load()``'s
+    library."""
     source = Path(source)
-    out = BUILD_DIR / "compare" / f"{name}.so"
-    if not out.exists() or out.stat().st_mtime < source.stat().st_mtime:
+    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / "compare" / f"{name}.{digest}.so"
+    if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),

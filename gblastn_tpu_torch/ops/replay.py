@@ -52,9 +52,12 @@ marks a seed whose walk would read outside the query or the packed
 subject, or whose context or subject index is out of range, with
 FLAG_RANGE (no walk; the exact rows stay); ``check_gate_flags`` raises
 ValueError where the caller fetches the flags. R's inputs are the sort's
-own, so it has nothing to check; RR reads only inside the query and the
-owning subject, and a seed whose subject index is out of range has a run
-of 0.
+own, so it has nothing to check; the sort's key holds each field in the
+bits its bound allows, and ``key_range_flag`` gives one int32 on the
+seeds' device, nonzero where a field lies past its bound, which
+``check_key_flag`` raises where the caller fetches it. RR reads only
+inside the query and the owning subject, and a seed whose subject index
+is out of range has a run of 0.
 """
 from __future__ import annotations
 
@@ -252,6 +255,36 @@ def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
     return outs
 
 
+_KEY_FIELDS = ((1, "oid"), (2, "s"), (4, "q"))    # key_range_flag's bits
+
+
+def key_range_flag(q_off, s_loc, oid, *, n_sub: int, s_len: int,
+                   q_len: int) -> torch.Tensor:
+    """int32 scalar on the seeds' device: bit 1 where an oid lies outside
+    [0, n_sub), 2 where a subject-local s lies outside [0, s_len), 4
+    where a q_off lies outside [0, q_len) (``replay_keys``' bounds); 0
+    where every field fits. Waits on nothing: the caller fetches it with
+    its results and raises there (``check_key_flag``)."""
+    flag = torch.zeros((), dtype=torch.int32, device=q_off.device)
+    for (bit, _name), v, bound in zip(_KEY_FIELDS, (oid, s_loc, q_off),
+                                      (n_sub, s_len, q_len)):
+        v = v.long()
+        flag |= ((v < 0) | (v >= bound)).any().to(torch.int32) * bit
+    return flag
+
+
+def check_key_flag(flag) -> None:
+    """ValueError naming the fields that ``key_range_flag`` found past
+    their bounds (``flag``: its value, a tensor or a numpy copy; a CUDA
+    tensor is fetched, which waits on the card)."""
+    f = int(flag.cpu().numpy().ravel()[0] if isinstance(flag, torch.Tensor)
+            else np.asarray(flag).ravel()[0])
+    if f:
+        names = ", ".join(name for bit, name in _KEY_FIELDS if f & bit)
+        raise ValueError(f"replay_keys: {names} outside the bounds the "
+                         "key was packed for")
+
+
 def key_layout(n_sub: int, s_len: int, q_len: int, diag_mask: int):
     """(diagonal bits, s bits, q bits) of the one-sort replay key, or None
     where it needs more than 63 bits. Most significant first, the key
@@ -280,8 +313,9 @@ def replay_keys(q_off, s_loc, oid, diag_mask: int, *, n_sub: int,
 
     Every oid lies in [0, n_sub), every subject-local s in [0, s_len)
     and every q_off in [0, q_len) (the batch's subject count, longest
-    subject and query buffer; checked on CPU tensors, where a value out of
-    its bound raises ValueError: its field would overwrite the next).
+    subject and query buffer; checked here on CPU tensors, where a value
+    out of its bound raises ValueError: its field would overwrite the
+    next; on the card the caller flags it with ``key_range_flag``).
     Where ``key_layout`` fits 63 bits, one stable sort of the packed key
     (``key_shift`` = the bits of s and q); else (or with ``two_sorts``)
     two stable sorts, the secondary key (s << 32 | q) first, then the
@@ -387,11 +421,11 @@ def _bind():
     return _lib_fns
 
 
-def _launch(fn, dev, args, what):
-    if dev.index == torch.cuda.current_device():
+def _launch(fn, index, args, what):
+    if index == torch._C._cuda_getDevice():
         rc = fn(*args)
     else:
-        with torch.cuda.device(dev.index):
+        with torch.cuda.device(index):
             rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
@@ -453,7 +487,7 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
             qbytes.numel(), packed.numel(), ctx_tables.shape[1],
             sub_starts.numel(), n, word_size, concat_end,
             *(o.data_ptr() for o in outs), raw_stream(dev.index))
-    _launch(fn, dev, args, "approx_gate")
+    _launch(fn, dev.index, args, "approx_gate")
     if capturing():
         approx_gate.captured += 1
     else:
@@ -508,7 +542,7 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     args = (*(t.data_ptr() for t in tensors),
             right_run.data_ptr() if runs else None, n, word_size, window,
             key_shift, saved.data_ptr(), raw_stream(dev.index))
-    _launch(fn, dev, args, "diag_replay")
+    _launch(fn, dev.index, args, "diag_replay")
     if capturing():
         diag_replay.captured += 1
     else:
@@ -518,6 +552,11 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
 
 diag_replay.launches = 0
 diag_replay.captured = 0
+
+
+_RR_SPECS = (("query_nib", torch.int64), ("subject_w", torch.int64),
+             ("sub_ends", torch.int64), ("q_off", torch.int32),
+             ("s_off", torch.int32), ("oid", torch.int32))
 
 
 def right_run(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
@@ -530,36 +569,39 @@ def right_run(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
     (each subject's end), and int32[n] seeds: q_off (buffer), s_off
     (global) and oid (the owning subject). Returns int32[n] runs, each
     at most ``word_size``. CPU tensors run the plain version; CUDA
-    tensors launch the kernel (a thread a seed) on the current stream
-    without waiting on the card. Launches count in
-    ``right_run.launches`` (in ``.captured`` while a graph captures)."""
-    tables = (query_nib, subject_w, sub_ends)
-    seeds = (q_off, s_off, oid)
-    if all(t.device.type == "cpu" for t in tables + seeds):
-        return right_run_ref(*tables, *seeds, word_size=word_size)
-    dev = q_off.device
-    if dev.type != "cuda":
-        raise ValueError(f"right_run: no kernel for {dev}")
+    tensors launch the kernel (a thread a seed, sixteen bases a step) on
+    the current stream without waiting on the card. Launches count in
+    ``right_run.launches`` (in ``.captured`` while a graph captures).
+
+    The checks of a CUDA call (one device, dtypes, contiguity, lengths,
+    32-bit offsets) read each tensor's attributes once: a call's host
+    work is several times the launch."""
+    tensors = (query_nib, subject_w, sub_ends, q_off, s_off, oid)
+    if not q_off.is_cuda:
+        if all(t.device.type == "cpu" for t in tensors):
+            return right_run_ref(*tensors, word_size=word_size)
+        raise ValueError(f"right_run: no kernel for {q_off.device}")
+    dev = q_off.get_device()
+    for t, (arg, dt) in zip(tensors, _RR_SPECS):
+        if t.get_device() != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"right_run: {arg} must be contiguous {dt} on "
+                             f"{q_off.device}, got {t.dtype} on {t.device}")
     n = q_off.numel()
-    _check_args("right_run", dev, [
-        ("query_nib", query_nib, torch.int64),
-        ("subject_w", subject_w, torch.int64),
-        ("sub_ends", sub_ends, torch.int64)]
-        + [(f"seed array {k}", t, torch.int32) for k, t in enumerate(seeds)])
-    if any(t.numel() != n for t in seeds):
+    if s_off.numel() != n or oid.numel() != n:
         raise ValueError("right_run: seed arrays of different lengths")
-    if not 0 <= word_size <= 64 or max(query_nib.numel() * 8,
-                                       subject_w.numel() * 16, n) >= 2**31:
+    q8, s16 = query_nib.numel(), subject_w.numel()
+    if not 0 <= word_size <= 64 or max(8 * q8, 16 * s16, n) >= 2**31:
         raise ValueError("right_run: word size outside [0, 64], or too "
                          "long for 32-bit offsets")
-    run = torch.empty(n, dtype=torch.int32, device=dev)
+    run = torch.empty(n, dtype=torch.int32, device=q_off.device)
     if n == 0:
         return run
     _g, _r, fn, raw_stream, capturing = _lib_fns or _bind()
-    args = (*(t.data_ptr() for t in tables), *(t.data_ptr() for t in seeds),
-            query_nib.numel(), subject_w.numel(), sub_ends.numel(), n,
-            word_size, run.data_ptr(), raw_stream(dev.index))
-    _launch(fn, dev, args, "right_run")
+    _launch(fn, dev, (
+        query_nib.data_ptr(), subject_w.data_ptr(), sub_ends.data_ptr(),
+        q_off.data_ptr(), s_off.data_ptr(), oid.data_ptr(), q8, s16,
+        sub_ends.numel(), n, word_size, run.data_ptr(), raw_stream(dev)),
+        "right_run")
     if capturing():
         right_run.captured += 1
     else:

@@ -22,15 +22,24 @@ kernel from a CUDA graph of 100 (``tools.timing.graph_ms``):
   * the device finish's G and R (ops/replay.py) at config 1's and config
     2's search-path inputs (``tools.replay_sets.batch_cases``), and with
     two-hit seeding at configs 1w, 2w and 2d (``prof_e2e``'s: window 40;
-    dc-megablast), with RR at config 1w (the one of them that probes
-    double words; ``batch_run_case``), each held bit-equal to its plain
-    version and timed as one launch alone and as a wrapper call, with
-    ``replay_keys``' two forms that order R's seeds (one sort of the
-    packed key, two sorts) timed beside them; with ``--parent DIR`` DIR's
-    G and R (its ``csrc/approx_gate.cu`` and ``csrc/diag_replay.cu``,
-    each built alone and launched through its C entry; R on the two-sort
-    order), held bit-equal too and timed in the same turns. G and R come
-    first.
+    dc-megablast), each held bit-equal to its plain version and timed as
+    one launch alone and as a wrapper call, with ``replay_keys``' two
+    forms that order R's seeds (one sort of the packed key, two sorts)
+    timed beside them; with ``--parent DIR`` DIR's G and R (its
+    ``csrc/approx_gate.cu`` and ``csrc/diag_replay.cu``, each built alone
+    and launched through its C entry; R on the one-sort order), held
+    bit-equal too and timed in the same turns. G and R come first;
+  * RR at config 1w (the one path that probes double words;
+    ``batch_run_case``) and on its random sets at words 11 and 28
+    (``random_run_cases``), held bit-equal to its plain version, one
+    launch alone beside an empty kernel's at the same grid (the launch
+    floor, ``timing.launch_floor_ms``) and a wrapper call; with
+    ``--parent DIR`` DIR's RR (its ``csrc/right_run.cu``, built alone and
+    launched through its C entry) held bit-equal too and timed in the
+    turns parent, this, this, parent, and, where DIR holds
+    ``gblastn_tpu_torch/ops/replay.py``, that file's ``right_run``
+    wrapper around this tree's kernel timed as a call beside this tree's
+    (the host work of a call before and after).
 
 Run on the card:
     python -m gblastn_tpu_torch.tools.prof_launch [--parent DIR]
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -50,7 +60,12 @@ from gblastn_tpu_torch.ops import _build
 from gblastn_tpu_torch.ops import gapped as og
 from gblastn_tpu_torch.ops import ungapped as ung
 from gblastn_tpu_torch.tools import prof_gapped
-from gblastn_tpu_torch.tools.timing import call_ms, device_label, graph_ms
+from gblastn_tpu_torch.tools.timing import (
+    call_ms,
+    device_label,
+    graph_ms,
+    launch_floor_ms,
+)
 from gblastn_tpu_torch.tools.workloads import C2_QUERIES, C2_QUERY_LEN
 
 
@@ -129,36 +144,21 @@ def search_shapes(dev):
 
 
 def finish_times(cases, label, parent=None):
-    """RR (where the case has it), G and R at each case of
-    ``search_shapes``' fourth item, each held bit-equal to its plain
-    version: RR one launch alone (a CUDA graph of 100) and a wrapper call;
-    G and R one launch alone, this tree's wrapper and, with ``parent``
-    (``parent_finish``' libraries), the parent's kernels through their C
-    entries (R on the two-sort order its entry takes), in the turns
-    parent, this, this, parent; their wrapper calls; and ``replay_keys``' one-sort and two-sort forms (a
-    call, CUDA events). Prints a line a case and returns (records, all
-    bit-equal)."""
+    """G and R at each case of ``search_shapes``' fourth item, each held
+    bit-equal to its plain version: one launch alone, this tree's wrapper
+    and, with ``parent`` (``parent_finish``' libraries), the parent's
+    kernels through their C entries, in the turns parent, this, this,
+    parent; their wrapper calls; and ``replay_keys``' one-sort and
+    two-sort forms (a call, CUDA events). Prints a line a case and
+    returns (records, all bit-equal)."""
     from gblastn_tpu_torch.ops import replay as rp
 
     rec, ok = {}, True
-    for name, ((g_args, g_kw, r_args, r_kw), run_case, keys) in cases.items():
-        rr_note = ""
-        if run_case is not None:
-            a, kw = run_case
-            same = torch.equal(rp.right_run(*a, **kw),
-                               rp.right_run_ref(*a, **kw))
-            ok &= same
-            one = graph_ms(lambda: rp.right_run(*a, **kw),
-                           counted=(rp.right_run,))
-            call = call_ms(lambda: rp.right_run(*a, **kw), 20, "cuda")
-            rec[f"rr_{name}"] = {"seeds": a[3].numel(), "ms_graph": one,
-                                 "ms_call": call, "bit_equal": same}
-            rr_note = (f"; RR one launch {one:.4f} ms, a call {call:.4f}, "
-                       f"bit-equal {same}")
+    for name, ((g_args, g_kw, r_args, r_kw), _run_case, keys) in (
+            cases.items()):
         g_want = rp.approx_gate_ref(*g_args, **g_kw)
         r_want = rp.diag_replay_ref(*r_args, **r_kw)
         k_args, k_kw = keys
-        two = rp.replay_keys(*k_args, **k_kw, two_sorts=True)
         g_launch, r_launch = {}, {}
         g_outs = {"this": []}
         r_outs = {"this": []}
@@ -172,8 +172,7 @@ def finish_times(cases, label, parent=None):
             g_launch["parent"], g_outs["parent"] = gate_c_launch(
                 parent["g"], g_args, g_kw)
             r_launch["parent"], r_outs["parent"] = replay_c_launch(
-                parent["r"], parent["r_shift"], two[:2] + r_args[2:],
-                r_kw, 0)
+                parent["r"], r_args, r_kw)
         g_launch["this"], r_launch["this"] = g_this, r_this
         g_ms = turns(g_launch, (rp.approx_gate,))
         r_ms = turns(r_launch, (rp.diag_replay,))
@@ -200,7 +199,55 @@ def finish_times(cases, label, parent=None):
               f"{_fmt(r_ms)} ms, a call {r_call:.4f}; replay_keys one sort "
               f"{sort_one:.4f} ms a call (key_shift {r_kw['key_shift']}), "
               f"two sorts {sort_two:.4f}; bit-equal {g_same and r_same}"
-              f"{rr_note}  [{label}]", flush=True)
+              f"  [{label}]", flush=True)
+    return rec, ok
+
+
+def rr_times(cases, label, parent=None, parent_wrapper=None):
+    """RR at each of ``cases`` ({name: (args, kw)} of ``right_run``), held
+    bit-equal to its plain version: one launch alone (a CUDA graph of
+    100) of this tree's wrapper and, with ``parent`` (a library from
+    ``_build.build_one``), of the parent's kernel through its C entry, in
+    the turns parent, this, this, parent; an empty kernel's launch at
+    the same grid (the launch floor); a wrapper call (CUDA events) and,
+    with ``parent_wrapper`` (``parent_right_run``), the parent's wrapper
+    call around this tree's kernel, in the turns parent, this, this,
+    parent. Prints a line a case and returns (records, all bit-equal)."""
+    from gblastn_tpu_torch.ops import replay as rp
+
+    rec, ok = {}, True
+    for name, (a, kw) in cases.items():
+        want = rp.right_run_ref(*a, **kw)
+        n = a[3].numel()
+        outs = {"this": []}
+
+        def this():
+            outs["this"][:] = [rp.right_run(*a, **kw)]
+        launches = {}
+        if parent is not None:
+            launches["parent"], outs["parent"] = rr_c_launch(parent, a, kw)
+        launches["this"] = this
+        one = turns(launches, (rp.right_run,))
+        torch.cuda.synchronize()
+        same = all(_same(o, (want,)) for o in outs.values())
+        ok &= same
+        floor = launch_floor_ms(-(-n // 256))
+        calls = {}
+        wrappers = {"this": rp.right_run}
+        if parent_wrapper is not None:
+            wrappers = {"parent": parent_wrapper, **wrappers}
+            same_w = torch.equal(parent_wrapper(*a, **kw), want)
+            ok &= same_w
+            same &= same_w
+        for who in list(wrappers) + list(wrappers)[::-1]:
+            calls.setdefault(who, []).append(call_ms(
+                lambda: wrappers[who](*a, **kw), 20, "cuda"))
+        rec[name] = {"seeds": n, "ms_graph": one, "ms_call": calls,
+                     "launch_floor_ms": floor, "bit_equal": bool(same)}
+        print(f"rr {name}: {n} seeds, word {kw['word_size']}; one launch "
+              f"{_fmt(one)} ms; an empty kernel at the same grid "
+              f"{floor:.4f} ms; a wrapper call {_fmt(calls)}; bit-equal "
+              f"{same}  [{label}]", flush=True)
     return rec, ok
 
 
@@ -251,16 +298,14 @@ def gate_c_launch(lib, args, kw):
     return launch, outs
 
 
-def replay_c_launch(lib, takes_shift, args, kw, key_shift):
+def replay_c_launch(lib, args, kw):
     """fn() launching R through the C entry of ``lib`` (the parent's
-    kernel, a library from ``_build.build_one``) on the current stream,
-    and its saved output (in a list). ``takes_shift``: the entry takes
-    key_shift (a segment is a run of equal key >> key_shift), else it is
-    one that compares whole keys (over the two-sort order)."""
+    kernel, a library from ``_build.build_one``; its entry takes
+    key_shift, as this tree's does) on the current stream, and its saved
+    output (in a list)."""
     fn = lib.gblastn_diag_replay
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * (4 if takes_shift else 3)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2)
     n = args[0].numel()
     dev = args[0].device
@@ -269,8 +314,7 @@ def replay_c_launch(lib, takes_shift, args, kw, key_shift):
     saved = torch.zeros(n, dtype=torch.uint8, device=dev)
     ptrs = (*(t.data_ptr() for t in args),
             runs.data_ptr() if runs is not None else None,
-            n, kw["word_size"], window,
-            *((key_shift,) if takes_shift else ()))
+            n, kw["word_size"], window, kw["key_shift"])
 
     def launch():
         saved.zero_()
@@ -280,13 +324,52 @@ def replay_c_launch(lib, takes_shift, args, kw, key_shift):
     return launch, [saved]
 
 
+def rr_c_launch(lib, args, kw):
+    """fn() launching RR through the C entry of ``lib`` (the parent's
+    kernel, a library from ``_build.build_one``; its entry's arguments
+    are the wrapper's) on the current stream, and its runs (in a
+    list)."""
+    fn = lib.gblastn_right_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 2
+    query_nib, subject_w, sub_ends, q_off = args[:4]
+    n = q_off.numel()
+    dev = q_off.device
+    run = torch.empty(n, dtype=torch.int32, device=dev)
+    ptrs = (*(t.data_ptr() for t in args), query_nib.numel(),
+            subject_w.numel(), sub_ends.numel(), n, kw["word_size"],
+            run.data_ptr())
+
+    def launch():
+        rc = fn(*ptrs, _raw_stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"RR launch failed: CUDA error {rc}")
+    return launch, [run]
+
+
+def parent_right_run(parent: Path):
+    """The ``right_run`` wrapper of the parent checkout's
+    ``gblastn_tpu_torch/ops/replay.py``, loaded as a module of its own
+    (it binds this tree's kernel library: a call then differs from this
+    tree's by its host work alone), or None where DIR holds no such
+    file."""
+    path = Path(parent) / "gblastn_tpu_torch" / "ops" / "replay.py"
+    if not path.is_file():
+        return None
+    spec = importlib.util.spec_from_file_location("_parent_replay", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.right_run
+
+
 def parent_finish(src):
-    """The parent's G and R (``parent_sources``' "g" and "r"), each built
-    alone: {"g": library, "r": library, "r_shift": whether its R entry
-    takes key_shift and scratch}."""
+    """The parent's G, R and RR (``parent_sources``' "g", "r" and
+    "rr"), each built alone: {"g": library, "r": library, "rr":
+    library}."""
     return {"g": _build.build_one(src["g"], "approx_gate_parent"),
             "r": _build.build_one(src["r"], "diag_replay_parent"),
-            "r_shift": "key_shift" in Path(src["r"]).read_text()}
+            "rr": _build.build_one(src["rr"], "right_run_parent")}
 
 
 def longest_job(jobs, q_len, s_len, rows):
@@ -302,11 +385,12 @@ def longest_job(jobs, q_len, s_len, rows):
 def parent_sources(parent: Path) -> dict[str, Path]:
     """The parent checkout's kernel sources that ``--parent`` builds:
     {"k1": ungapped_xdrop.cu, "k2": gapped_band.cu, "g": approx_gate.cu,
-    "r": diag_replay.cu}. FileNotFoundError names a missing one before
-    anything is built or launched."""
+    "r": diag_replay.cu, "rr": right_run.cu}. FileNotFoundError names a
+    missing one before anything is built or launched."""
     csrc = Path(parent) / "gblastn_tpu_torch" / "csrc"
     out = {"k1": csrc / "ungapped_xdrop.cu", "k2": csrc / "gapped_band.cu",
-           "g": csrc / "approx_gate.cu", "r": csrc / "diag_replay.cu"}
+           "g": csrc / "approx_gate.cu", "r": csrc / "diag_replay.cu",
+           "rr": csrc / "right_run.cu"}
     for path in out.values():
         if not path.is_file():
             raise FileNotFoundError(f"--parent: no {path}")
@@ -392,8 +476,8 @@ def main(argv=None) -> int:
         prog="python -m gblastn_tpu_torch.tools.prof_launch",
         description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout whose K1, K2, G and R to time beside "
-                         "this tree's")
+                    help="a checkout whose K1, K2, G, R and RR to time "
+                         "beside this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_launch: needs a CUDA card", file=sys.stderr)
@@ -405,10 +489,20 @@ def main(argv=None) -> int:
     ok = True
 
     k1_c1, k1_c2, (k2_args, k2_kw), finish = search_shapes(dev)
-    fin, same = finish_times(
-        finish, label,
-        parent_finish(parent_sources(args.parent)) if args.parent else None)
+    pf = parent_finish(parent_sources(args.parent)) if args.parent else None
+    fin, same = finish_times(finish, label, pf)
     rec["finish"] = fin
+    ok &= same
+    from gblastn_tpu_torch.tools.replay_sets import random_run_cases
+
+    rr_cases = {name: c[1] for name, c in finish.items()
+                if c[1] is not None}
+    rr_cases.update({f"random{kw['word_size']}": (a, kw)
+                     for _label, a, kw in random_run_cases(dev)})
+    rr, same = rr_times(
+        rr_cases, label, pf["rr"] if pf else None,
+        parent_right_run(args.parent) if args.parent else None)
+    rec["rr"] = rr
     ok &= same
     q, s2, mat, kw_pg, sets = prof_gapped.workload(dev, n_sets=1)
     k2_cases = {"config2": (k2_args, k2_kw),

@@ -129,3 +129,21 @@ def graph_ms(fn, reps: int = 100, counted=()) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def launch_floor_ms(blocks: int) -> float:
+    """``graph_ms`` of an empty kernel (csrc/launch_floor.cu) at a grid
+    of ``blocks`` blocks of 256 threads (the port's kernels' block): what
+    one launch alone costs in that harness whatever the kernel does. CUDA
+    only (the current device)."""
+    from gblastn_tpu_torch.ops import _build
+
+    fn = _build.load().gblastn_empty_launch
+    dev = torch.cuda.current_device()
+
+    def launch():
+        rc = fn(max(blocks, 1), torch._C._cuda_getCurrentRawStream(dev))
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error "
+                               f"{rc}")
+    return graph_ms(launch)

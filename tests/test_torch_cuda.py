@@ -566,3 +566,155 @@ def test_dc_megablast_cuda_bytes_equal_cpu_bytes(tmp_path):
         got = (tmp_path / "c.tsv").read_bytes()
         assert got.count(b"\n") >= 6
         assert got == (tmp_path / "p.tsv").read_bytes()
+
+
+def _two_hit_batch(dev):
+    """A small megablast batch with window 40 on ``dev`` (word 28 over a
+    narrower lookup word, so RR probes): six reads of 600 bases with 3%
+    substitutions from two random subjects, one reverse-complemented,
+    one with an N."""
+    from gblastn_tpu_torch import FastaRecord, SequenceDB, megablast_options
+    from gblastn_tpu_torch.engine.search import setup_batch
+
+    rng = np.random.default_rng(17)
+    g = ["".join("ACGT"[c] for c in rng.integers(0, 4, L))
+         for L in (30000, 9000)]
+    db = SequenceDB.from_records(
+        [FastaRecord(f"g{i}", "", x) for i, x in enumerate(g)], title="t")
+    reads = []
+    for k in range(6):
+        src = g[k % 2]
+        st = int(rng.integers(0, len(src) - 700))
+        r = list(src[st: st + 600])
+        for p in np.flatnonzero(rng.random(600) < 0.03):
+            r[p] = "ACGT"[("ACGT".index(r[p]) + 1) % 4]
+        if k == 2:
+            r[300] = "N"
+        seq = "".join(r)
+        if k == 3:
+            seq = seq[::-1].translate(str.maketrans("ACGTN", "TGCAN"))
+        reads.append(FastaRecord(f"r{k}", "", seq))
+    return setup_batch(reads, db, megablast_options(evalue=1e-5,
+                                                    window_size=40), dev)
+
+
+@pytest.mark.cuda
+def test_right_run_at_config_1w_and_from_a_graph():
+    """RR (sixteen bases a step) bit-equal to its plain version at config
+    1w's search-path seeds (bench.py's genome and reads, megablast with
+    -window_size 40) and on its full random sets at words 11 and 28, also
+    replayed from a CUDA graph that captured the wrapper; one launch
+    counted a call, none while capturing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch import FastaRecord, SequenceDB
+    from gblastn_tpu_torch.engine.search import setup_batch
+    from gblastn_tpu_torch.ops.replay import right_run, right_run_ref
+    from gblastn_tpu_torch.tools.prof_e2e import config_options
+    from gblastn_tpu_torch.tools.replay_sets import (
+        batch_run_case,
+        random_run_cases,
+    )
+    from gblastn_tpu_torch.tools.workloads import (
+        GENOME_LEN,
+        NUM_QUERIES,
+        QUERY_LEN,
+        SEED,
+        make_genome,
+        sample_reads,
+    )
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(SEED)
+    genome = make_genome(rng, GENOME_LEN)
+    pairs, _ = sample_reads(rng, genome, NUM_QUERIES, QUERY_LEN, "w0_")
+    db = SequenceDB.from_records([FastaRecord("g", "", genome)], title="g")
+    batch = setup_batch([FastaRecord(n, "", s) for n, s in pairs], db,
+                        config_options("config1w"), dev)
+    cases = [batch_run_case(batch)] + [
+        (a, kw) for _label, a, kw in random_run_cases(dev)]
+    assert cases[0] is not None and cases[0][1]["word_size"] == 28
+    for args, kw in cases:
+        want = right_run_ref(*args, **kw)
+        assert int(want.max()) == kw["word_size"] and int(want.min()) == 0
+        before = right_run.launches
+        got = right_run(*args, **kw)
+        torch.cuda.synchronize()
+        assert right_run.launches == before + 1
+        assert got.is_cuda and torch.equal(got, want)
+        captured, launches = right_run.captured, right_run.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = right_run(*args, **kw)
+        assert right_run.captured == captured + 1
+        assert right_run.launches == launches
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_key_range_flag_raises_at_the_fetch():
+    """On CUDA tensors replay_keys checks nothing itself: key_range_flag
+    marks a planted s past the sort's bound (bit 2) without a wait, and
+    a batch whose s lie past the bound (its longest subject cut to 100
+    bases) raises ValueError at run_seeding's one fetch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.engine.seeding import run_seeding
+    from gblastn_tpu_torch.ops.replay import check_key_flag, key_range_flag
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(3)
+    q, s, oid = (torch.from_numpy(rng.integers(0, b, 4096)).to(
+        dev, torch.int32) for b in (3000, 5000, 40))
+    bounds = dict(n_sub=40, s_len=5000, q_len=3000)
+    assert int(key_range_flag(q, s, oid, **bounds)) == 0
+    s[77] = 5000
+    flag = key_range_flag(q, s, oid, **bounds)
+    assert flag.is_cuda and int(flag) == 2
+    with pytest.raises(ValueError, match="s outside"):
+        check_key_flag(flag)
+    batch = _two_hit_batch(dev)
+    res = batch.seed_dev.resident
+    assert len(run_seeding(batch.seed_dev, **batch.seed_kw)) > 3
+    longest, res.longest = res.longest, 100
+    try:
+        with pytest.raises(ValueError, match="s outside the bounds"):
+            run_seeding(batch.seed_dev, **batch.seed_kw)
+    finally:
+        res.longest = longest
+
+
+@pytest.mark.cuda
+def test_device_finish_waits_on_nothing_before_the_nonzero():
+    """device_finish (RR, G, the sort, its range flag and R) runs under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any operation
+    that waits on the card, while the nonzero after it does raise there;
+    its head and saved seeds equal the same finish on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.engine import seeding as es
+    from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+
+    out = {}
+    for name in ("cuda:0", "cpu"):
+        batch = _two_hit_batch(torch.device(name))
+        dev, kw = batch.seed_dev, batch.seed_kw
+        assert es.probes_double_words(dev, kw)
+        ctx, k1_args, _n = es.ungapped_inputs(dev, **kw)
+        ung = ungapped_extend_window(*k1_args)
+        if name == "cpu":
+            out[name] = es.device_finish(dev, k1_args, ctx, ung, kw)
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[name] = es.device_finish(dev, k1_args, ctx, ung, kw)
+            with pytest.raises(RuntimeError):
+                torch.nonzero(out[name][2])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for got, want in zip(out["cuda:0"], out["cpu"]):
+        assert torch.equal(got.cpu(), want)

@@ -197,23 +197,40 @@ def test_scan_parts_records_give_the_kernels_entry(capsys):
 
 
 def test_prof_launch_parent_sources(tmp_path):
-    """--parent names a checkout: its K1, K2, G and R sources, or a
+    """--parent names a checkout: its K1, K2, G, R and RR sources, or a
     FileNotFoundError that names the first missing one before any
     build."""
     csrc = tmp_path / "gblastn_tpu_torch" / "csrc"
     csrc.mkdir(parents=True)
     names = {"k1": "ungapped_xdrop.cu", "k2": "gapped_band.cu",
-             "g": "approx_gate.cu", "r": "diag_replay.cu"}
-    for missing in ("ungapped_xdrop.cu", "approx_gate.cu", "diag_replay.cu"):
+             "g": "approx_gate.cu", "r": "diag_replay.cu",
+             "rr": "right_run.cu"}
+    for missing in ("ungapped_xdrop.cu", "approx_gate.cu", "diag_replay.cu",
+                    "right_run.cu"):
         for f in names.values():
             (csrc / f).write_text("")
         (csrc / missing).unlink()
         with pytest.raises(FileNotFoundError, match=missing):
             prof_launch.parent_sources(tmp_path)
-    (csrc / "diag_replay.cu").write_text("")
+    (csrc / "right_run.cu").write_text("")
     assert prof_launch.parent_sources(tmp_path) == {
         k: csrc / f for k, f in names.items()}
     assert set(prof_launch.parent_sources(REPO)) == set(names)
+
+
+def test_prof_launch_parent_right_run(tmp_path):
+    """--parent's RR wrapper: the right_run of the checkout's
+    ops/replay.py, loaded as a module of its own (on CPU tensors it runs
+    that file's plain version), or None where the checkout holds only its
+    csrc/."""
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.tools.replay_sets import random_run_cases
+
+    assert prof_launch.parent_right_run(tmp_path) is None
+    fn = prof_launch.parent_right_run(REPO)
+    assert fn is not rp.right_run and fn.__module__ == "_parent_replay"
+    for _label, args, kw in random_run_cases("cpu", n=512):
+        assert torch.equal(fn(*args, **kw), rp.right_run(*args, **kw))
 
 
 def test_batch_cases_replay_saves_what_run_seeding_keeps():
@@ -314,6 +331,36 @@ def test_build_keeps_its_log(tmp_path, monkeypatch):
             if k[0] == "ungapped_xdrop.cu"] == ["k1_kernel"]
 
 
+def test_build_one_keys_its_library_by_the_source(tmp_path, monkeypatch):
+    """A comparison library is named by its source's text: the same name
+    from another checkout's source builds anew (the profilers once timed
+    one checkout's kernel under another's name), the same text does
+    not."""
+    from gblastn_tpu_torch.ops import _build
+
+    built = []
+
+    def fake_nvcc(cmd, **kw):
+        out = Path(cmd[cmd.index("-o") + 1])
+        out.write_bytes(Path(cmd[-1]).read_bytes())
+        built.append(cmd[-1])
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "b")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(_build.ctypes, "CDLL", Path)
+    a, b = tmp_path / "a" / "right_run.cu", tmp_path / "p" / "right_run.cu"
+    for src, text in ((a, "// this tree"), (b, "// the parent")):
+        src.parent.mkdir()
+        src.write_text(text)
+    lib_a = _build.build_one(a, "right_run_parent")
+    lib_b = _build.build_one(b, "right_run_parent")
+    assert lib_a != lib_b and lib_b.read_text() == "// the parent"
+    assert _build.build_one(b, "right_run_parent") == lib_b
+    assert built == [str(a), str(b)]
+
+
 def test_chip_smoke_rr_work():
     """chip_smoke.py's RR bound counts what the walk needs: a step loop in
     the kernel's order (load the words of the next base, compare, stop
@@ -382,3 +429,7 @@ def test_chip_smoke_finish_entry_sorts():
                      ("diag_replay_two_hit_kernel", 64)))
     assert [k[1:3] for k in chip_smoke.ptxas_kernels(log)] == [
         ("diag_replay_kernel", 60), ("diag_replay_two_hit_kernel", 64)]
+    # a namespace hash whose digits read as the length of a longer name
+    assert chip_smoke._kernel_name(
+        "_ZN45_GLOBAL__N__0a1b2345c7_12_right_run_cu_d3e3b1c816right_run_"
+        "kernelEPKxS1_S1_PKiS3_S3_iiiiiPi") == "right_run_kernel"
