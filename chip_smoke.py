@@ -48,6 +48,24 @@ after:
    through the CLI: launch counters of K1, K2, G, R and RR, tabular bytes
    equal to the CPU run, reads that miss their locus counted (not a
    failure);
+3b. query splitting: a second strain's assembly as one query (20 kb
+   segments from random places and strands of the config-1 genome, 2%
+   substitutions), 5.5 Mb with megablast and 1.2 Mb with blastn through
+   the CLI, split into chunks: every segment's locus found, the segment
+   across the first chunk boundary one merged HSP; tabular bytes equal to
+   the CPU run at CHUNK_SIZE=1000000 on the 1.2 Mb query (megablast) and
+   at CHUNK_SIZE=25000 on its first 30 kb (blastn);
+3c. repeat filtering: -filtering_db with a library of 1,000 repeat
+   elements of 300 bases whose copies (10-20% divergent) replace 10% of
+   the genome, 500 x 1 kb reads through the CLI: the nested blastn search
+   launches K1, G and R on the card, its masks equal the CPU run's, the
+   tabular bytes equal the CPU run's and differ from a run without the
+   filter;
+3d. pipelined mode (-mode 2): 4 x 500 config-1 reads and config 2
+   through the CLI, bytes equal to -mode 1's, and run_pipelined_search
+   against search() on the same four batches, q/s of both;
+3e. blast_formatter: config 1's -outfmt 11 archive re-rendered as
+   -outfmt 6, 7 and 10 equals the direct runs;
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
@@ -1042,17 +1060,18 @@ def main() -> int:
         check(rc == 0, f"blastn -device {device} exited {rc}")
         return time.time() - t
 
-    # a read set through the CLI: -device cuda twice (cold, then warm with
+    # a read set through the CLI (against the database ``db_name`` of
+    # the work directory): -device cuda twice (cold, then warm with
     # its stage report), the two outputs equal; -device cpu on the first
     # CLI batch, bytes equal to the cuda lines of its reads, then on all
     # of them when the whole cpu run would take under about two minutes;
     # each kernel's launches read around the cold cuda run; the reads
     # that miss their locus (``loci``) listed. Returns what it measured.
-    def cli_path(tag, rs, loci, qlen, extra):
+    def cli_path(tag, rs, loci, qlen, extra, db_name="db"):
         fa = work / f"{tag}.fa"
         fa.write_text("".join(f">{r.seq_id}\n{r.sequence}\n" for r in rs))
         args = ["blastn", *extra, "-query", str(fa), "-db",
-                str(work / "db"), "-outfmt", "6", "-max_target_seqs", "10"]
+                str(work / db_name), "-outfmt", "6", "-max_target_seqs", "10"]
         guard(True)
         counts_zero()
         slog.reset()
@@ -1354,6 +1373,317 @@ def main() -> int:
               f"{tag} CLI launches K1/K2/G/R/RR {ln} over {nb} batches")
         check(ln[2] == (0 if tag == "blastn_short" else nb),
               f"{tag} CLI launched G {ln[2]} times over {nb} batches")
+    # one CLI run on the card with the plain versions guarded and every
+    # launch counter and stage timer set to 0 just before it: (output
+    # bytes, launches of K1, K2, G, R and RR, seconds, stage totals)
+    def card_run(args, out):
+        guard(True)
+        counts_zero()
+        slog.reset()
+        try:
+            t = run_cli(args, "cuda", out)
+        finally:
+            guard(False)
+        return (Path(out).read_bytes(), (k1.launches, k2.launches,
+                                         kg.launches, kr.launches,
+                                         krr.launches), t, dict(slog.totals))
+
+    new_paths = {}
+
+    # 6f. query splitting (ROADMAP item 10): a second strain's assembly as
+    # one query longer than the chunk (segments of 20 kb from random
+    # places and strands of config 1's genome, 2% substitutions), 5.5 Mb
+    # with megablast (5 Mb chunks) and 1.2 Mb with blastn (1 Mb chunks)
+    # through the CLI on the card: at least two chunks, every segment's
+    # locus found, the segment across the first chunk boundary one merged
+    # HSP. cuda bytes equal cpu bytes on the same recipe where the plain
+    # path can run it (its K1 walks every seed of a segment to the
+    # segment's ends): megablast at CHUNK_SIZE=1000000 on the 1.2 Mb
+    # query, blastn at CHUNK_SIZE=25000 on its first 30 kb
+    from gblastn_tpu_torch.engine.split import (
+        chunk_size_for_task,
+        overlap_size,
+        split_records,
+    )
+    from gblastn_tpu_torch.tools.workloads import plant_repeats, strain_query
+
+    def strain_missing(text, pieces):
+        """The segments (query start, genome start, length, minus) with no
+        tabular line over half of both their query span and their
+        locus."""
+        spans = []
+        for line in text.splitlines():
+            f = line.split("\t")
+            s0, s1 = sorted((int(f[8]), int(f[9])))
+            spans.append((int(f[6]) - 1, int(f[7]), s0 - 1, s1))
+        return [p for p in pieces if not any(
+            min(q1, p[0] + p[2]) - max(q0, p[0]) >= p[2] // 2
+            and min(s1, p[1] + p[2]) - max(s0, p[1]) >= p[2] // 2
+            for q0, q1, s0, s1 in spans)]
+
+    def merged_across(text, chunk):
+        """A tabular line 1,000 bases deep on both sides of the first
+        chunk boundary (the overlap strip included)."""
+        lo = chunk - overlap_size() - 1000
+        return any(int(f[6]) - 1 < lo and int(f[7]) > chunk + 1000
+                   for f in (ln.split("\t") for ln in text.splitlines()))
+
+    rng6 = np.random.default_rng(SEED + 9)
+    strain55, pieces55 = strain_query(rng6, genome, 5_500_000)
+    strain12, pieces12 = strain_query(rng6, genome, 1_200_000)
+    split_notes = []
+    t_split = time.time()
+    for tag, seq, pieces, task, chunk_env, on_cpu in (
+            ("split_megablast", strain55, pieces55, "megablast", None,
+             False),
+            ("split_blastn", strain12, pieces12, "blastn", None, False),
+            ("split_megablast_1m", strain12, pieces12, "megablast",
+             1_000_000, True),
+            ("split_blastn_30k", strain12[:30_000], pieces12[:2], "blastn",
+             25_000, True)):
+        if chunk_env:
+            os.environ["CHUNK_SIZE"] = str(chunk_env)
+        try:
+            chunk = chunk_size_for_task(task)
+            recs, info, _any = split_records([FastaRecord("strain", "", seq)],
+                                             chunk, overlap_size())
+            check(len(info) >= 2, f"{tag}: split_records made {len(info)} "
+                                  f"chunk(s) of a {len(seq)}-base query")
+            fa = work / f"{tag}.fa"
+            fa.write_text(f">strain\n{seq}\n")
+            args = ["blastn", "-task", task, "-evalue", "1e-5", "-query",
+                    str(fa), "-db", str(work / "db"), "-outfmt", "6"]
+            out, launch, t_cuda, spans = card_run(args,
+                                                  work / f"{tag}_cuda.tsv")
+            text = out.decode()
+            missing = strain_missing(text, pieces)
+            check(not missing, f"{tag}: {len(missing)} of {len(pieces)} "
+                               f"segments missed their locus: {missing[:3]}")
+            check(merged_across(text, chunk),
+                  f"{tag}: no HSP crosses the chunk boundary at {chunk}")
+            check(launch[0] >= 1 and launch[2] >= 1 and launch[3] >= 1,
+                  f"{tag}: launches K1/K2/G/R/RR {launch}")
+            note = ""
+            if on_cpu:
+                t_cpu = run_cli(args, "cpu", work / f"{tag}_cpu.tsv")
+                check(out == (work / f"{tag}_cpu.tsv").read_bytes(),
+                      f"{tag}: tabular bytes differ between -device cuda "
+                      "and cpu")
+                note = f"; cpu plain {t_cpu:.2f} s, bytes equal"
+                if task == "megablast":
+                    note += (f" (the 5.5 Mb query's cpu run, about "
+                             f"{t_cpu * len(strain55) / len(seq):.0f} s at "
+                             "this rate, was not made)")
+            q_len = 2 * sum(len(r.sequence) + 1 for r in recs)
+            layout = rp.key_layout(1, len(genome), q_len, 0)
+            top = sorted(spans.items(), key=lambda kv: -kv[1])[:5]
+            split_notes.append(
+                f"{tag}: {len(seq)} bases, {task}, chunk {chunk}: "
+                f"{len(info)} chunks, {len(pieces)} segments all found, "
+                f"the boundary segment merged, {out.count(b'\n')} tabular "
+                f"lines; R's key (diagonal, s, q bits) {layout}; launches "
+                f"K1 {launch[0]} K2 {launch[1]} G {launch[2]} R {launch[3]}"
+                f" RR {launch[4]}; cuda {t_cuda:.2f} s ("
+                + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in top)
+                + f"){note}")
+            new_paths[f"{tag}_cli"] = launch
+        finally:
+            os.environ.pop("CHUNK_SIZE", None)
+    for ln in split_notes:
+        print(f"{ln}  [{card}]")
+    print(f"split phase: {time.time() - t_split:.1f} s  [{card}]")
+    del strain55, strain12
+
+    # 6g. repeat filtering (ROADMAP item 15): a RepeatMasker-style library
+    # of 1,000 elements of 300 bases, 10% of config 1's genome replaced by
+    # copies of them at 10-20% divergence, 500 x 1 kb reads of that genome
+    # (config 1's recipe), megablast with -filtering_db through the CLI
+    # (cli_path: cuda cold and warm, cpu bytes equal); the nested search's
+    # launches and masks read around each of its calls; the same run
+    # without the filter on the card must differ
+    import gblastn_tpu_torch.masking.repeats as mrep
+
+    t_rep = time.time()
+    rng7 = np.random.default_rng(SEED + 10)
+    elems, genome_r, copies = plant_repeats(rng7, genome)
+    pairs_r, starts_r = sample_reads(rng7, genome_r, NUM_QUERIES, QUERY_LEN,
+                                     "r")
+    reads_r = [FastaRecord(n, "", x) for n, x in pairs_r]
+    (work / "rep_genome.fa").write_text(">rep_genome\n" + genome_r + "\n")
+    (work / "rep_lib.fa").write_text("".join(
+        f">elem{i}\n{e}\n" for i, e in enumerate(elems)))
+    for src, name in (("rep_genome.fa", "rep_db"), ("rep_lib.fa", "rep_lib")):
+        check(cli_main(["makedb", "-in", str(work / src), "-out",
+                        str(work / name), "-title", name]) == 0,
+              f"makedb {name} failed")
+    del genome_r
+    nested = []     # (launch deltas K1, K2, G, R, RR; masks; device)
+    find = mrep.find_repeat_masks
+
+    def counted_find(records, repeat_db, device="cuda"):
+        before = (k1.launches, k2.launches, kg.launches, kr.launches,
+                  krr.launches)
+        masks = find(records, repeat_db, device)
+        after = (k1.launches, k2.launches, kg.launches, kr.launches,
+                 krr.launches)
+        nested.append((tuple(a - b for a, b in zip(after, before)), masks,
+                       str(device)))
+        return masks
+
+    rep_extra = ["-task", "megablast", "-evalue", "1e-5"]
+    mrep.find_repeat_masks = counted_find
+    try:
+        rep = cli_path("repeats", reads_r,
+                       {r.seq_id: x for r, x in zip(reads_r, starts_r)},
+                       QUERY_LEN, rep_extra + ["-filtering_db",
+                                               str(work / "rep_lib")],
+                       db_name="rep_db")
+    finally:
+        mrep.find_repeat_masks = find
+    check(not rep["missed"],
+          f"repeat reads missing their locus: {rep['missed'][:5]}")
+    check(len(nested) == 3 and nested[0][2].startswith("cuda")
+          and nested[2][2] == "cpu",
+          f"the nested repeat search ran as {[n[2] for n in nested]}")
+    nest_launch, masks_r = nested[0][0], nested[0][1]
+    check(min(nest_launch[0], nest_launch[2], nest_launch[3]) >= 1,
+          f"the nested repeat search launched K1/K2/G/R/RR {nest_launch}")
+    check(masks_r == nested[1][1] == nested[2][1],
+          "the repeat masks differ between the cuda and cpu runs")
+    cst = np.array([c[0] for c in copies])
+    over = [int((np.minimum(st + QUERY_LEN, cst + 300)
+                 - np.maximum(st, cst)).max()) for st in starts_r]
+    held = [bool(m) for m, o in zip(masks_r, over) if o >= 150]
+    check(sum(held) >= 0.9 * len(held),
+          f"only {sum(held)} of {len(held)} reads holding 150 bases of a "
+          "repeat copy were masked")
+    plain_out, plain_launch, t_plain, _spans = card_run(
+        ["blastn", *rep_extra, "-query", str(work / "repeats.fa"), "-db",
+         str(work / "rep_db"), "-outfmt", "6", "-max_target_seqs", "10"],
+        work / "repeats_plain_cuda.tsv")
+    filt_out = (work / "repeats_cuda.tsv").read_bytes()
+    check(plain_out != filt_out,
+          "the run without -filtering_db gave the filtered run's bytes")
+    print(f"repeats: {len(elems)} elements, {len(copies)} copies (10% of "
+          f"the genome); {sum(map(bool, masks_r))} of {len(reads_r)} reads "
+          f"masked, {sum(held)} of the {len(held)} holding 150 bases of a "
+          f"copy; masks equal on cuda and cpu; nested search launches K1 "
+          f"{nest_launch[0]} K2 {nest_launch[1]} G {nest_launch[2]} R "
+          f"{nest_launch[3]} RR {nest_launch[4]}; {filt_out.count(b'\n')} "
+          f"tabular lines filtered, {plain_out.count(b'\n')} without the "
+          f"filter ({t_plain:.2f} s); phase {time.time() - t_rep:.1f} s  "
+          f"[{card}]")
+    new_paths["repeats_cli"] = rep["launches"]
+    new_paths["repeats_nested"] = nest_launch
+    new_paths["repeats_plain_cli"] = plain_launch
+    del reads_r, masks_r, nested
+
+    # 6h. pipelined mode (ROADMAP item 9), cell 1p's shape: 4 x 500
+    # config-1 reads through the CLI with -mode 2 and -mode 1 (one CLI
+    # batch: megablast batches hold 5 Mb), config 2's three CLI batches
+    # with -mode 2 against 6b's -mode 1 bytes, and run_pipelined_search
+    # called as bench.py's bench_config1_pipelined calls it, against
+    # search() on the same four batches; q/s of both (a reading)
+    from gblastn_tpu_torch.engine.pipeline import run_pipelined_search
+
+    t_pipe_phase = time.time()
+    rng8 = np.random.default_rng(SEED + 8)
+    p_batches = [[FastaRecord(n, "", x) for n, x in sample_reads(
+        rng8, genome, NUM_QUERIES, QUERY_LEN, f"p{k}_")[0]]
+        for k in range(4)]
+    (work / "pipeline.fa").write_text("".join(
+        f">{r.seq_id}\n{r.sequence}\n" for b in p_batches for r in b))
+    p_args = ["blastn", "-task", "megablast", "-evalue", "1e-5", "-query",
+              str(work / "pipeline.fa"), "-db", str(work / "db"), "-outfmt",
+              "6", "-max_target_seqs", "10"]
+    m1 = card_run(p_args + ["-mode", "1"], work / "pipeline_m1.tsv")
+    m2 = card_run(p_args + ["-mode", "2"], work / "pipeline_m2.tsv")
+    check(m2[0] == m1[0], "-mode 2 and -mode 1 bytes differ (config 1p)")
+    c2m2 = card_run(["blastn", "-task", "blastn", "-evalue", "1e-5",
+                     "-query", str(work / "config2.fa"), "-db",
+                     str(work / "db"), "-outfmt", "6", "-max_target_seqs",
+                     "10", "-mode", "2"], work / "config2_m2.tsv")
+    check(c2m2[0] == (work / "config2_cuda.tsv").read_bytes(),
+          "config 2: -mode 2 bytes differ from -mode 1's")
+    check(c2m2[1][1] == c2["batches"] and c2m2[1][3] == c2["batches"],
+          f"config 2 -mode 2 launches K1/K2/G/R/RR {c2m2[1]} over "
+          f"{c2['batches']} batches")
+    run_pipelined_search(iter(p_batches[:1]), db, options, lambda r: None,
+                         device=dev)
+    # in turns: pipelined, sequential, sequential, pipelined
+    times = {"pipe": [], "seq": []}
+    rows = {}
+    guard(True)
+    for turn in ("pipe", "seq", "seq", "pipe"):
+        counts_zero()
+        got = []
+        t = time.time()
+        if turn == "pipe":
+            done = run_pipelined_search(iter(p_batches), db, options,
+                                        lambda r: got.extend(hsp_rows(r)),
+                                        device=dev)
+        else:
+            for b in p_batches:
+                got.extend(hsp_rows(search(b, db, options, device=dev)))
+        torch.cuda.synchronize()
+        times[turn].append(time.time() - t)
+        rows[turn] = got
+        if turn == "pipe":
+            pipe_launch = (k1.launches, k2.launches, kg.launches,
+                           kr.launches, krr.launches)
+    guard(False)
+    check(done == 4 and rows["pipe"] == rows["seq"],
+          "run_pipelined_search differs from search() on the 1p batches")
+    check(pipe_launch[0] == pipe_launch[2] == pipe_launch[3] == 4,
+          f"run_pipelined_search launches K1/K2/G/R/RR {pipe_launch}")
+    n_p = sum(len(b) for b in p_batches)
+
+    def qps(ts):
+        return " / ".join(f"{n_p / x:.1f}" for x in ts)
+
+    print(f"pipeline (1p): CLI {n_p} reads -mode 2 {m2[2]:.2f} s = "
+          f"{n_p / m2[2]:.1f} q/s, -mode 1 {m1[2]:.2f} s = "
+          f"{n_p / m1[2]:.1f} q/s, bytes equal (one CLI batch); "
+          f"run_pipelined_search over {done} batches {qps(times['pipe'])} "
+          f"q/s (turns 1 and 4), search() {qps(times['seq'])} q/s (turns 2 "
+          f"and 3), {len(rows['pipe'])} HSPs equal; config 2 -mode 2 "
+          f"{c2m2[2]:.2f} s over {c2['batches']} CLI batches, bytes of "
+          f"-mode 1; phase {time.time() - t_pipe_phase:.1f} s  [{card}]")
+    new_paths.update({"pipeline_mode1_cli": m1[1],
+                      "pipeline_mode2_cli": m2[1],
+                      "config2_mode2_cli": c2m2[1],
+                      "pipeline_direct": pipe_launch})
+    del p_batches, rows
+
+    # 6i. blast_formatter (ROADMAP item 16): config 1 to an -outfmt 11
+    # archive on the card, then blast_formatter -outfmt 6, 7 and 10 on it
+    # against direct runs in those formats (-outfmt 7's "# Database:"
+    # line names the archived path where a direct run names the title,
+    # as in the JAX package)
+    t_fmt = time.time()
+    f_args = ["blastn", "-task", "megablast", "-evalue", "1e-5", "-query",
+              str(work / "config1.fa"), "-db", str(work / "db"),
+              "-max_target_seqs", "10"]
+    arc_launch = card_run(f_args + ["-outfmt", "11"], work / "config1.11")[1]
+    for fmt in ("6", "7", "10"):
+        direct = card_run(f_args + ["-outfmt", fmt],
+                          work / f"config1_direct{fmt}.txt")[0]
+        out = work / f"config1_formatter{fmt}.txt"
+        check(cli_main(["blast_formatter", "-archive",
+                        str(work / "config1.11"), "-outfmt", fmt, "-out",
+                        str(out)]) == 0, f"blast_formatter -outfmt {fmt}")
+        got = out.read_bytes()
+        if fmt == "7":
+            got, direct = ([ln for ln in x.splitlines()
+                            if not ln.startswith(b"# Database:")]
+                           for x in (got, direct))
+        check(got == direct and len(got) > NUM_QUERIES,
+              f"blast_formatter -outfmt {fmt} differs from the direct run")
+    print(f"blast_formatter: config 1's archive re-rendered as -outfmt 6, "
+          f"7 and 10 equals the direct runs; phase {time.time() - t_fmt:.1f}"
+          f" s  [{card}]")
+    new_paths["formatter_archive_cli"] = arc_launch
+
     del genome, db, reads, reads2, reads2d
 
     # 7. scale: one 500-read batch against a 300 Mb resident genome
@@ -1393,7 +1723,8 @@ def main() -> int:
     # path is prof_scan_parts, and it is timed at P3's shape
     paths = {"config1_cli": c1_launches, "config2_search": s_launch,
              "config2_cli": c2_launches, "config2d_search": d_launch,
-             **{f"{t}_cli": c["launches"] for t, c in cli_paths.items()}}
+             **{f"{t}_cli": c["launches"] for t, c in cli_paths.items()},
+             **new_paths}
     k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
     g_recs = {"config2": g_c2, "config1": g_c1, "random": g_rand,
               **g2_recs}

@@ -4,10 +4,11 @@
 ``python -m gblastn_tpu blastn`` (the argument table and option building
 are the port's copy, cli/args.py) plus ``-device cuda|cpu`` (default
 cuda; asking for cuda without a card is an error), and searches through
-gblastn_tpu_torch.engine.search. Only the sequential ``-mode 1`` is
-ported. The subcommands that do not search (makedb, blastdbcmd,
-dustmasker, ...) are copies too (cli/dbtools.py); blast_formatter is not
-offered here.
+gblastn_tpu_torch.engine.search: the sequential ``-mode 1`` and the
+pipelined ``-mode 0/2`` (engine.pipeline). The subcommands that do not
+search (makedb, blastdbcmd, dustmasker, ...) are copies too
+(cli/dbtools.py), and so is blast_formatter, which re-renders an
+``-outfmt 11`` archive on the host.
 """
 from __future__ import annotations
 
@@ -56,11 +57,6 @@ def run_blastn(argv) -> int:
     from gblastn_tpu_torch.engine.search import search
 
     device = resolve_device(args.device)
-    if args.mode != 1:
-        raise NotImplementedError(
-            f"gblastn_tpu_torch: -mode {args.mode} (pipelined search) is "
-            "not ported yet (ROADMAP Queue 1 item 9)"
-        )
 
     if args.import_search_strategy:
         # RecoverSearchStrategy (blastn_app.cpp:423, search_strategy.cpp)
@@ -323,10 +319,21 @@ def run_blastn(argv) -> int:
             prev_handler = None
         interrupted = False
         try:
-            # Method1: sequential per-batch loop (blastn_app.cpp:500)
-            for batch in all_batches():
-                emit(search(batch, db, options, device=device,
-                            interrupt_fn=stop_req.is_set))
+            if args.mode == 1:
+                # Method1: sequential per-batch loop (blastn_app.cpp:500)
+                for batch in all_batches():
+                    emit(search(batch, db, options, device=device,
+                                interrupt_fn=stop_req.is_set))
+            else:
+                # Method2/3: pipelined stages (blastn_app.cpp:725/:991)
+                from gblastn_tpu_torch.engine.pipeline import (
+                    run_pipelined_search,
+                )
+
+                run_pipelined_search(
+                    all_batches(), db, options, emit, device=device,
+                    interrupt_fn=stop_req.is_set,
+                )
         except SearchInterrupted:
             interrupted = True
             print(
@@ -359,6 +366,35 @@ def run_blastn(argv) -> int:
     return 0
 
 
+def run_blast_formatter(argv) -> int:
+    """blast_formatter: re-render a -outfmt 11 archive (reference:
+    src/app/blast/blast_formatter.cpp) as tabular 6/7/10."""
+    p = argparse.ArgumentParser(prog="gblastn-tpu-torch blast_formatter")
+    p.add_argument("-archive", required=True,
+                   help="Blast4-archive file (-outfmt 11 output)")
+    p.add_argument("-outfmt", default="6")
+    p.add_argument("-line_length", type=int, default=60,
+                   help="alignment line length (outfmt 0-4)")
+    p.add_argument("-num_descriptions", type=int, default=500,
+                   help="one-line summary count (outfmt 0-4)")
+    p.add_argument("-out", default="-")
+    args = p.parse_args(argv)
+
+    from gblastn_tpu_torch.format.formatter import format_archive
+
+    text = open(args.archive).read()
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+    try:
+        return format_archive(
+            text, out, args.outfmt,
+            line_length=args.line_length,
+            num_descriptions=args.num_descriptions,
+        )
+    finally:
+        if out is not sys.stdout:
+            out.close()
+
+
 _COMMANDS = {
     "blastn": run_blastn,
     "makedb": run_makedb,
@@ -370,6 +406,7 @@ _COMMANDS = {
     "blastdb_aliastool": run_aliastool,
     "blastdbcheck": run_blastdbcheck,
     "makembindex": run_makembindex,
+    "blast_formatter": run_blast_formatter,
 }
 
 

@@ -1,16 +1,19 @@
 """End-to-end megablast and blastn search on one device, in PyTorch.
 
 The port's counterpart of ``gblastn_tpu/engine/search.py``: the same
-host setup (query block, masks, lookup table or the two tables of a
-discontiguous template pair, derived parameters), then the resident
-seeding path on the chosen device (scan, mini-extension, K1 and the
-device finish; engine.seeding), the device banded-DP filter (K2) in
-front of the host gapped prelim when a batch has enough candidates,
-hitlist collection, traceback and ranking. The port covers megablast,
-blastn, blastn-short, vecscreen and dc-megablast (every template), with
-one-hit or two-hit seeding (``window_size``), over a database held
-resident on one device; every other search shape raises
-NotImplementedError naming the ROADMAP item that ports it.
+host setup (query block, masks, the repeat filter's nested search, lookup
+table or the two tables of a discontiguous template pair, derived
+parameters), then the resident seeding path on the chosen device (scan,
+mini-extension, K1 and the device finish; engine.seeding), the device
+banded-DP filter (K2) in front of the host gapped prelim when a batch has
+enough candidates, hitlist collection, traceback and ranking; queries
+longer than the task's chunk are split and stitched (engine.split), and
+``prelim_search_steps`` is the generator form that the pipelined mode
+interleaves (engine.pipeline). The port covers megablast, blastn,
+blastn-short, vecscreen and dc-megablast (every template), with one-hit
+or two-hit seeding (``window_size``), over a database held resident on
+one device; every other search shape raises NotImplementedError naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -48,7 +51,11 @@ from gblastn_tpu_torch.engine.gapped import (
     run_gapped_prelim,
 )
 from gblastn_tpu_torch.engine.resident import resident_from_reference
-from gblastn_tpu_torch.engine.seeding import SeedingDeviceData, run_seeding
+from gblastn_tpu_torch.engine.seeding import (
+    SeedingDeviceData,
+    drive,
+    run_seeding_steps,
+)
 from gblastn_tpu_torch.ops.replay import query_bytes
 from gblastn_tpu_torch.ops.seeding import pack_query_nibbles
 from gblastn_tpu_torch.ops.ungapped import make_table64, pack_query
@@ -102,11 +109,9 @@ def _shards_requested() -> int:
         return 0
 
 
-def _refuse_outside_slice(records, options: SearchOptions) -> None:
+def _refuse_outside_slice(options: SearchOptions) -> None:
     """NotImplementedError for every search shape this slice does not
     port, naming the ROADMAP Queue 1 item that does."""
-    from gblastn_tpu_torch.engine.split import chunk_size_for_task
-
     def no(what, item):
         raise NotImplementedError(
             f"gblastn_tpu_torch: {what} is not ported yet "
@@ -120,11 +125,6 @@ def _refuse_outside_slice(records, options: SearchOptions) -> None:
         no("-use_index", 13)
     if options.db_soft_mask is not None or options.db_hard_mask is not None:
         no("-db_soft_mask / -db_hard_mask", 13)
-    if options.filtering_db:
-        no("-filtering_db (repeat masking runs a nested search)", 15)
-    chunk = chunk_size_for_task(options.task.value)
-    if any(rec.length > chunk for rec in records):
-        no(f"query splitting (a query longer than {chunk} bases)", 10)
     if _shards_requested() > 1:
         no("multi-device sharding (GBLASTN_TPU_SHARDS > 1)", 14)
     # the resident size bound is checked where the database is uploaded
@@ -158,7 +158,7 @@ def setup_batch(
     database."""
     dev = resolve_device(device)
     options.validate()
-    _refuse_outside_slice(records, options)
+    _refuse_outside_slice(options)
     with slog.time("setup.query_block"):
         qblock = build_query_block(records, options.strand)
     ctx_offsets = qblock.context_offsets()
@@ -212,6 +212,22 @@ def setup_batch(
             masks = lc_masks
         else:
             masks = [sorted(a + b) for a, b in zip(masks, lc_masks)]
+    if options.filtering_db:
+        from gblastn_tpu_torch.masking.repeats import (
+            load_repeat_db,
+            query_repeat_masks,
+        )
+
+        # a nested blastn search against the repeat database, on this
+        # batch's device (its resident copy is cached on its own db)
+        with slog.time("setup.repeat_filter"):
+            rep_masks = query_repeat_masks(
+                qblock, records, load_repeat_db(options.filtering_db), dev
+            )
+        if masks is None:
+            masks = rep_masks
+        else:
+            masks = [sorted(a + b) for a, b in zip(masks, rep_masks)]
     if loc_ranges is not None:
         # sentinel-fence the range: bases outside [start, stop) become
         # sentinels, so seeding skips them and every extension stops at
@@ -372,13 +388,36 @@ def prelim_search(
 
     ``interrupt_fn`` (optional, () -> bool) is polled at stage
     boundaries; returning True raises SearchInterrupted."""
+    return drive(prelim_search_steps(records, db, options, device,
+                                     interrupt_fn))
+
+
+def prelim_search_steps(
+    records: list[FastaRecord],
+    db: SequenceDB,
+    options: SearchOptions,
+    device: str | torch.device = "cuda",
+    interrupt_fn=None,
+):
+    """Generator form of prelim_search: yields exactly once, after the
+    batch's seeding is launched on the card and before its one wait
+    (``run_seeding_steps``), so a pipelining caller can run host work of
+    the previous batch while the card computes (engine.pipeline). No
+    span is open across the yield: ``device.seeding`` times the launch
+    and the fetch as two parts. The PrelimResult arrives as
+    StopIteration.value. Queries are searched whole, however long (the
+    JAX package's prelim_search_steps does not split either)."""
     from gblastn_tpu_torch.utils.interrupt import check
 
     check(interrupt_fn)
     batch = setup_batch(records, db, options, device)
     qblock, params, masks = batch.qblock, batch.params, batch.masks
     with slog.time("device.seeding"):
-        init = run_seeding(batch.seed_dev, **batch.seed_kw)
+        sgen = run_seeding_steps(batch.seed_dev, **batch.seed_kw)
+        next(sgen)
+    yield
+    with slog.time("device.seeding"):
+        init = drive(sgen)
     # the JAX package's engage rule (gblastn_tpu/engine/search.py:930):
     # the filter runs from GBLASTN_TPU_GAPPED_FILTER_MIN candidates up,
     # or always when GBLASTN_TPU_GAPPED_FILTER=1
@@ -553,8 +592,43 @@ def search(
 ) -> BlastResults:
     """Run a complete nucleotide search (megablast, blastn, blastn-short,
     vecscreen, dc-megablast) end to end on ``device`` ("cuda" or "cpu";
-    "cuda" without a card raises)."""
-    return finish_search(
-        prelim_search(records, db, options, device, interrupt_fn),
-        db, options, interrupt_fn,
+    "cuda" without a card raises).
+
+    Queries longer than the task chunk size are transparently split
+    into overlapping chunks and the results stitched back
+    (engine.split, the role of split_query_cxx.cpp)."""
+    from gblastn_tpu_torch.engine.split import (
+        chunk_size_for_task,
+        merge_chunk_prelim,
+        overlap_size,
+        split_records,
     )
+
+    chunk = chunk_size_for_task(options.task.value)
+    recs2, info, any_split = split_records(
+        records, chunk, overlap_size()
+    )
+    if not any_split:
+        return finish_search(
+            prelim_search(records, db, options, device, interrupt_fn),
+            db, options, interrupt_fn,
+        )
+
+    # merge at the PRELIM stage (BlastHSPStreamMerge semantics): chunk
+    # HSPs remap to original coordinates, boundary HSPs concatenate,
+    # and the traceback runs over the ORIGINAL query block so merged
+    # boxes re-extend exactly as unsplit ones (blast_hits.c:2545)
+    sub = prelim_search(recs2, db, options, device, interrupt_fn)
+    qblock_orig = build_query_block(records, options.strand)
+    n_ctx_per_query = 2 if options.strand == "both" else 1
+    hitlist_size = options.max_target_seqs or options.hitlist_size
+    params_orig = derive_params(
+        options, [c.length for c in qblock_orig.contexts],
+        db.total_length, db.num_seqs,
+    )
+    merged = merge_chunk_prelim(
+        sub, info, len(records), n_ctx_per_query,
+        qblock_orig, params_orig, options.gapped, overlap_size(),
+        hitlist_size,
+    )
+    return finish_search(merged, db, options, interrupt_fn)

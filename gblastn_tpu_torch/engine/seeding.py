@@ -397,6 +397,16 @@ def probes_double_words(dev: SeedingDeviceData, scan_kw: dict) -> bool:
             and not scan_kw.get("disc_offsets"))
 
 
+def drive(gen):
+    """Run a generator of the ``*_steps`` form to its end; its return
+    value (StopIteration.value)."""
+    try:
+        while True:
+            next(gen)
+    except StopIteration as e:
+        return e.value
+
+
 def run_seeding(
     dev: SeedingDeviceData,
     **scan_kw,                      # ungapped_inputs keywords
@@ -406,18 +416,32 @@ def run_seeding(
     two-hit by ``dev.window``), one fetch of the saved seeds. A seed that
     K1 or G flagged out of range, or a key field past the bound the sort
     packed it for (``key_range_flag``), raises ValueError at the fetch,
-    before a row is used."""
+    before a row is used. ``run_seeding_steps`` driven to its end."""
+    return drive(run_seeding_steps(dev, **scan_kw))
+
+
+def run_seeding_steps(dev: SeedingDeviceData, **scan_kw):
+    """Generator form of ``run_seeding``: yields exactly once, after the
+    device finish is launched and before its one wait (the ``nonzero``
+    of R's saved seeds), so a caller can run host work of another batch
+    while the card computes (engine.pipeline). Only the scan waits
+    before the yield (it sizes its seed arrays). The InitHits arrive as
+    StopIteration.value."""
     with slog.time("device.seeding.pipeline"):
         ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
         ung = ungapped_extend_window(*k1_args)
     n = int(k1_args[3].numel())
     slog.diagnostics.lookup_hits += n_raw
     slog.diagnostics.init_extends += n
+    if n:
+        with slog.time("device.seeding.finish"):
+            rows, head, saved = device_finish(dev, k1_args, ctx, ung,
+                                              scan_kw)
+    yield                                           # launched, not fetched
     if n == 0:
         z = np.zeros(0, dtype=np.int32)
         return InitHits(z, z, z, z, z, z, z, z)
     with slog.time("device.seeding.finish"):
-        rows, head, saved = device_finish(dev, k1_args, ctx, ung, scan_kw)
         keep = torch.nonzero(saved).squeeze(1)      # the one wait
     with slog.time("device.seeding.fetch"):
         out = torch.cat([head, rows[:, keep].reshape(-1)]).cpu().numpy()

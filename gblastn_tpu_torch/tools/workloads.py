@@ -89,3 +89,64 @@ def make_workload(seed=0, num_queries=64, qlen=1000,
         reads.append(FastaRecord(f"q{i}", "", "".join(frag)))
     db = SequenceDB.from_records([FastaRecord("chr1", "", g)])
     return db, reads
+
+
+_CODE = np.full(256, 255, np.uint8)
+_CODE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+_BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _mutate(rng, codes, rate):
+    """``codes`` (0-3) with ``rate`` of the positions redrawn to another
+    base, in place."""
+    p = np.flatnonzero(rng.random(len(codes)) < rate)
+    codes[p] = (codes[p] + rng.integers(1, 4, len(p))) % 4
+    return codes
+
+
+def strain_query(rng, genome, length, seg=20_000, rate=0.02):
+    """A second strain's assembly against ``genome`` as one query of
+    ``length`` bases: ``seg``-base segments, each from a random place and
+    strand of ``genome`` with ``rate`` substitutions; the first segment is
+    half as long, so that a chunk boundary at a multiple of ``seg`` falls
+    inside a segment. Returns the sequence and each segment's (query
+    start, genome start, length, minus)."""
+    g = _CODE[np.frombuffer(genome.encode(), np.uint8)]
+    parts, pieces, q = [], [], 0
+    while q < length:
+        n = min(seg // 2 if q == 0 else seg, length - q)
+        st = int(rng.integers(0, len(g) - n))
+        codes = _mutate(rng, g[st: st + n].copy(), rate)
+        minus = bool(rng.random() < 0.5)
+        parts.append(3 - codes[::-1] if minus else codes)
+        pieces.append((q, st, n, minus))
+        q += n
+    return _BASES[np.concatenate(parts)].tobytes().decode(), pieces
+
+
+def plant_repeats(rng, genome, n_elements=1000, elem_len=300, share=0.10,
+                  divergence=(0.10, 0.20)):
+    """A RepeatMasker-style library of ``n_elements`` random elements of
+    ``elem_len`` bases, and ``genome`` with ``share`` of it replaced by
+    copies of them: one copy in each of equal slots of the genome, at a
+    random place in its slot and strand, with a divergence drawn
+    uniformly from ``divergence``. Copy numbers differ between families
+    as in a real library: element k (from 0) is drawn with weight
+    1 / (k + 1). Returns (elements, new genome, each copy's (start,
+    element, minus))."""
+    elems = rng.integers(0, 4, (n_elements, elem_len)).astype(np.uint8)
+    g = _CODE[np.frombuffer(genome.encode(), np.uint8)].copy()
+    n_copies = int(len(g) * share) // elem_len
+    slot = len(g) // n_copies
+    weight = 1.0 / np.arange(1, n_elements + 1)
+    family = rng.choice(n_elements, n_copies, p=weight / weight.sum())
+    copies = []
+    for k in range(n_copies):
+        st = k * slot + int(rng.integers(0, slot - elem_len + 1))
+        e = int(family[k])
+        codes = _mutate(rng, elems[e].copy(), rng.uniform(*divergence))
+        minus = bool(rng.random() < 0.5)
+        g[st: st + elem_len] = 3 - codes[::-1] if minus else codes
+        copies.append((st, e, minus))
+    return ([_BASES[e].tobytes().decode() for e in elems],
+            _BASES[g].tobytes().decode(), copies)

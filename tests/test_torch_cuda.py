@@ -718,3 +718,56 @@ def test_device_finish_waits_on_nothing_before_the_nonzero():
             torch.cuda.set_sync_debug_mode(0)
     for got, want in zip(out["cuda:0"], out["cpu"]):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_pipelined_mode_on_the_card(tmp_path, monkeypatch):
+    """-mode 2 gives -mode 1's bytes on the card (four CLI batches of
+    three reads), and run_seeding_steps waits on nothing between the
+    scan (which sizes its seed arrays) and its yield, under
+    torch.cuda.set_sync_debug_mode("error"); the seeds it then fetches
+    equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import gblastn_tpu_torch.cli.main as cli
+    from gblastn_tpu_torch.engine import seeding as es
+
+    monkeypatch.setattr(cli, "BATCH_SIZE_MEGABLAST", 1200)
+    rng = np.random.default_rng(313)
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, 40000))
+    (tmp_path / "g.fa").write_text(">c\n" + genome + "\n")
+    (tmp_path / "q.fa").write_text("".join(
+        f">q{k}\n{genome[1000 + k * 2500: 1400 + k * 2500]}\n"
+        for k in range(12)))
+    assert cli.main(["makedb", "-in", str(tmp_path / "g.fa"), "-out",
+                     str(tmp_path / "db")]) == 0
+    out = {}
+    for mode in ("1", "2"):
+        assert cli.main(["blastn", "-query", str(tmp_path / "q.fa"), "-db",
+                         str(tmp_path / "db"), "-outfmt", "6", "-mode", mode,
+                         "-out", str(tmp_path / f"m{mode}.tsv")]) == 0
+        out[mode] = (tmp_path / f"m{mode}.tsv").read_bytes()
+    assert out["2"] == out["1"] and out["1"].count(b"\n") >= 12
+
+    got = {}
+    for name in ("cuda:0", "cpu"):
+        batch = _two_hit_batch(torch.device(name))
+        pre = es.ungapped_inputs(batch.seed_dev, **batch.seed_kw)
+        monkeypatch.setattr(es, "ungapped_inputs", lambda _d, **_k: pre)
+        gen = es.run_seeding_steps(batch.seed_dev, **batch.seed_kw)
+        if name == "cpu":
+            next(gen)
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                next(gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        got[name] = es.drive(gen)
+        monkeypatch.undo()
+    for f in ("q_off", "s_off", "q_start", "s_start", "length", "score",
+              "context", "oid"):
+        assert np.array_equal(getattr(got["cuda:0"], f),
+                              getattr(got["cpu"], f)), f
+    assert len(got["cpu"]) > 0

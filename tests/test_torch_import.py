@@ -46,6 +46,17 @@ for options in (gblastn_tpu_torch.megablast_options(),
              for q in res.queries for l in q.hsplists]
     assert spans == [(0, 1000, 1300), (1, 5000, 5250)], spans
 
+# the pipelined mode and the repeat filter's module
+from gblastn_tpu_torch.engine.pipeline import run_pipelined_search
+from gblastn_tpu_torch.masking.repeats import find_repeat_masks
+got = []
+assert run_pipelined_search(iter([reads[:1], reads[1:]]), db,
+                            gblastn_tpu_torch.megablast_options(),
+                            got.append, device="cpu") == 2
+assert [r.queries[0].hsplists[0].hsps[0].s_off for r in got] == [1000, 5000]
+masks = find_repeat_masks(reads, db, device="cpu")
+assert masks == [[(0, 299)], [(0, 249)]], masks
+
 if torch.cuda.is_available():
     print("CUDA-PRESENT")
 else:
@@ -54,7 +65,13 @@ else:
                  lambda: gblastn_tpu_torch.search(
                      reads, db, gblastn_tpu_torch.megablast_options()),
                  lambda: main(["blastn", "-query", "q.fa", "-db", "d",
-                               "-device", "cuda"])):
+                               "-device", "cuda"]),
+                 lambda: main(["blastn", "-query", "q.fa", "-db", "d",
+                               "-mode", "2"]),
+                 lambda: run_pipelined_search(
+                     iter([reads]), db,
+                     gblastn_tpu_torch.megablast_options(), got.append),
+                 lambda: find_repeat_masks(reads, db)):
         try:
             call()
         except RuntimeError as e:
@@ -179,6 +196,9 @@ def test_sources_never_import_jax():
     assert len(files) > 50
     # the profilers are scanned too
     assert REPO / "gblastn_tpu_torch" / "tools" / "prof_scan_parts.py" in files
+    # and so are the pipelined mode and the repeat filter
+    for mod in ("engine/pipeline.py", "masking/repeats.py"):
+        assert REPO / "gblastn_tpu_torch" / mod in files, mod
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(), 1):
             assert not _FORBIDDEN.search(line), f"{f}:{n}: {line.strip()}"
