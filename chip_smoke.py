@@ -66,6 +66,31 @@ after:
    against search() on the same four batches, q/s of both;
 3e. blast_formatter: config 1's -outfmt 11 archive re-rendered as
    -outfmt 6, 7 and 10 equals the direct runs;
+3e'. past 2^31: K1, G, RR and R (one-hit and two-hit) against their plain
+   versions on seeds of a single random subject of 2^31 + 2^22 bases
+   made on the card (tools.replay_sets.past_2g_cases): RR's and R's wide
+   kernels (int64 coordinates), each timed as one launch beside its
+   bound, in the kernels line's entries under "past2g";
+3f. giant (bench.py's config 4: one random subject of 3.2 Gbases, 100
+   planted 1 kb reads, 2% substitutions) and
+3g. chroms (24 random subjects of GRCh38's primary chromosome lengths,
+   3.09 Gbases; 100 reads, 35 of them on chr14-chrY, past 2^31), each
+   megablast through search() with the whole database resident on the
+   card: every read's best hit within 64 bases of its plant, the hits
+   past 2^31 counted (at least 20 on giant, 30 on chroms), run_seeding's
+   InitHits equal to the host finish field by field, K1, G and R launched
+   once, the -outfmt 6 rendering's sstart at each plant past 2^31; the
+   resident bytes a base, the peak device memory (its part beside the
+   resident form, in the allocator's reserve, within the check's
+   engine.resident.SEARCH_WORK_BYTES), the process's peak RSS, the
+   batch's time and its largest spans printed (run after 4);
+3h. the database's masks: a mask column of 300-3,000-base intervals over
+   30% of config 1's genome (makedb -mask_data), config 1 through the CLI
+   with -db_soft_mask and with -db_hard_mask: cuda bytes equal cpu bytes
+   and differ from the unmasked run's;
+3i. indexed megablast: makembindex, then config 1 through the CLI with
+   -use_index true, plain and with -db_soft_mask: cuda bytes equal cpu
+   bytes and the scanned runs' bytes;
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
@@ -158,6 +183,23 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def span_bytes(lo, hi):
+    """The length of the union of the half-open ranges [lo, hi) (int64
+    tensors): the distinct bytes of an array that walks from lo to hi
+    read."""
+    import torch
+
+    keep = hi > lo
+    lo, hi = lo[keep], hi[keep]
+    if not lo.numel():
+        return 0
+    order = torch.argsort(lo)
+    lo, hi = lo[order], hi[order]
+    reach = torch.cummax(hi, 0).values
+    start = torch.maximum(lo[1:], reach[:-1])
+    return int(hi[0] - lo[0]) + int((hi[1:] - start).clamp(min=0).sum())
+
+
 def _kernel_name(mangled):
     """The shortest name '<len><name>' ending in '_kernel' inside a
     mangled symbol, else the symbol. (The anonymous namespace's hash may
@@ -232,8 +274,12 @@ def compare_k1(args, label, card, reps):
                        "cuda")
     walk = int(steps.sum())
     lanes = ung.lockstep_lane_steps(steps)
-    # query, subject, table and 5 int32 per seed in; 5 int32 per seed out
-    bound_ms, by = bound(nbytes(*args) + 20 * n, K1_OPS_PER_STEP * walk)
+    # query, table and the seeds in, and the subject bytes the walks
+    # read; 4 int32 and an int64 (s_start) per seed out
+    s0 = args[4].long()
+    read = span_bytes(s0 - steps[0], s0 + steps[1])
+    bound_ms, by = bound(nbytes(args[0], *args[2:]) + read + 24 * n,
+                         K1_OPS_PER_STEP * walk)
     print(f"k1 {label}: n={n} seeds, {walk} walk steps, bit-equal (also "
           f"from a graph); one launch {ms_graph:.4f} ms, a call {ms:.4f} "
           f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); "
@@ -349,9 +395,14 @@ def compare_gate(args, kw, label, card, reps):
     need = int(((f & rp.FLAG_NEED) != 0).sum())
     dem = int(((f & rp.FLAG_DEMOTE) != 0).sum())
     walk = int(steps.sum())
-    longest = int(steps.max()) if n else 0
-    # tables and 8 int32 a seed in; 5 int32 a seed out
-    bound_ms, by = bound(nbytes(*args) + 20 * n, G_OPS_PER_STEP * walk)
+    longest = int(steps.sum(0).max()) if n else 0
+    # the query, tables and the seeds in, and the packed subject bytes
+    # the walks read (from the seed's byte, to within one); 4 int32 and
+    # an int64 (s_start) a seed out
+    sb = args[7].long() >> 2
+    read = span_bytes(sb - steps[0], sb + steps[1] + 1)
+    bound_ms, by = bound(nbytes(args[0], *args[2:]) + read + 24 * n,
+                         G_OPS_PER_STEP * walk)
     print(f"G {label}: n={n} seeds, {need} gated, {dem} demoted, {walk} "
           f"byte-steps (longest walk {longest}), bit-equal (also from a "
           f"graph); one launch {ms_graph:.4f} ms, a call {ms:.4f} ms, plain "
@@ -396,8 +447,8 @@ def compare_replay(args, kw, label, card, reps, keys=None):
                           "cuda")
         sort_two_ms = call_ms(lambda: rp.replay_keys(
             *keys[0], **keys[1], two_sorts=True), reps, "cuda")
-    # sorted keys and order, 4 int32 a seed read (5 with two-hit's runs);
-    # a byte a seed written
+    # sorted keys and order, the four per-seed arrays read (and two-hit's
+    # runs); a byte a seed written
     bound_ms, by = bound(nbytes(*args) + n + (4 * n if runs is not None
                                                else 0), 0)
     note = (f", replay_keys: one sort {sort_ms:.4f} ms a call (key_shift "
@@ -529,7 +580,8 @@ def compare_finish(batch, label, card, reps, k1=None):
     need = int(slog.values["seeding.gate_need"])
     # the host finish on the full fetch of K1's rows (the parent's path),
     # with two-hit seeding the host's own right runs
-    rows = torch.stack([*g_args[6:9], *g_args[10:14]]).cpu().numpy()
+    rows = torch.stack([t.long() for t in (*g_args[6:9], *g_args[10:14])]
+                       ).cpu().numpy()
     t0 = time.time()
     runs = None
     if window:
@@ -568,7 +620,7 @@ def compare_finish(batch, label, card, reps, k1=None):
           f"{spans['device.seeding.pipeline'] * 1e3:.1f}, finish "
           f"{spans['device.seeding.finish'] * 1e3:.1f}, fetch "
           f"{spans['device.seeding.fetch'] * 1e3:.2f} ms), fetched {fetched} "
-          f"bytes (the full fetch of K1's rows: {32 * n}); the host finish "
+          f"bytes (the full fetch of K1's rows: {40 * n}); the host finish "
           f"on that fetch {t_host * 1e3:.1f} ms{note}  [{card}]")
     return g, r
 
@@ -760,7 +812,7 @@ def random_k1_args(device, n=32768, seed=SEED + 1):
     return (pack_query(q_t), res.subject2,
             torch.from_numpy(make_table64(device_matrix16(1, -2))).to(
                 device),
-            qs_t.to(i32), ss_t.to(i32), x.to(device), max_l.to(i32),
+            qs_t.to(i32), ss_t, x.to(device), max_l.to(i32),
             max_r.to(i32))
 
 
@@ -915,8 +967,9 @@ def main() -> int:
         name = Path(source).name
         regs[what] = {fn: r for src, fn, r, _st, _ld in ptxas
                       if src == name}
-        # R has a one-hit and a two-hit kernel
-        check(len(regs[what]) == (2 if what == "R" else 1),
+        # R has a one-hit and a two-hit kernel, each with a wide twin
+        # (int64 coordinates); RR a narrow and a wide one
+        check(len(regs[what]) == {"R": 4, "RR": 2}.get(what, 1),
               f"ptxas reported {what}'s kernels as {regs[what]}")
         check(all(st == ld == 0 for src, _fn, _r, st, ld in ptxas
                   if src == name), f"{what} spills registers")
@@ -1390,6 +1443,166 @@ def main() -> int:
 
     new_paths = {}
 
+    # a genome-scale phase (7a): ``pairs`` (name, sequence) planted at
+    # ``plants`` (database coordinates) on subjects ``owner`` of ``g_db``,
+    # through search() on the card with every launch counter set to 0 just
+    # before it; each read's best hit within 64 bases of its plant, on its
+    # subject; run_seeding's InitHits equal to the host finish; the
+    # -outfmt 6 rendering's sstart at each plant past 2^31; the resident
+    # bytes, the peak device memory, the process's peak RSS, the batch's
+    # time and its largest spans printed. Returns the search's launches.
+    def genome_phase(tag, g_db, pairs, plants, owner, t_db):
+        import io
+        import resource
+
+        from gblastn_tpu_torch.engine.resident import (
+            BYTES_PER_BASE,
+            SEARCH_WORK_BYTES,
+            free_bytes,
+        )
+        from gblastn_tpu_torch.engine.seeding import _finish_init_hits
+        from gblastn_tpu_torch.format.render import ResultRenderer
+        from gblastn_tpu_torch.ops.seeding import BUILD_CHUNK
+
+        g_reads = [FastaRecord(n, "", x) for n, x in pairs]
+        free0 = free_bytes(dev)
+        total = torch.cuda.mem_get_info(dev)[1]
+        torch.cuda.reset_peak_memory_stats()
+        guard(True)
+        counts_zero()
+        slog.reset()
+        t0 = time.time()
+        try:
+            res = search(g_reads, g_db, options, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            guard(False)
+        t_cold = time.time() - t0
+        launch = (k1.launches, k2.launches, kg.launches, kr.launches,
+                  krr.launches)
+        spans = dict(slog.totals)
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        check(launch[0] == launch[2] == launch[3] == 1 and launch[4] == 0,
+              f"{tag}: search() launches K1/K2/G/R/RR {launch}")
+        starts = np.asarray(g_db.starts)
+        found = bad = far = 0
+        hits = {}
+        for q in res.queries:
+            best = None
+            for lst in q.hsplists:
+                for h in lst.hsps:
+                    if best is None or h.score > best[1].score:
+                        best = (lst.oid, h)
+            if best is None:
+                continue
+            found += 1
+            oid, h = best
+            lo = int(starts[oid]) + min(h.s_off, h.s_end)
+            p = plants[q.query_index]
+            if not (p - 64 <= lo <= p + 64) or oid != owner[q.query_index]:
+                bad += 1
+            if p + QUERY_LEN > (1 << 31):
+                far += 1
+            hits[q.query_index] = (oid, lo)
+        check(found == len(pairs) and bad == 0,
+              f"{tag}: {found} of {len(pairs)} reads found, {bad} away from "
+              "their plants")
+        n_far = (far if tag == "giant"
+                 else sum(o >= 13 for o in owner))
+        check(n_far >= (20 if tag == "giant" else 30),
+              f"{tag}: {n_far} hits past 2^31")
+        # the -outfmt 6 rendering: each read past 2^31 prints its plant
+        buf = io.StringIO()
+        rr = ResultRenderer(6, None, buf, g_db, options, dbname=tag,
+                            task="megablast")
+        rr.emit(res)
+        rr.finalize()
+        first = {}
+        for line in buf.getvalue().splitlines():
+            f = line.split("\t")
+            first.setdefault(f[0], f)
+        shown = 0
+        for i, (name, _x) in enumerate(pairs):
+            if plants[i] + QUERY_LEN <= (1 << 31):
+                continue
+            f = first[name]
+            k = owner[i]
+            local = plants[i] - int(starts[k])
+            lo = min(int(f[8]), int(f[9])) - 1
+            check(f[1] == g_db.ids[k] and abs(lo - local) <= 64,
+                  f"{tag}: {name} printed {f[1]} {f[8]}-{f[9]}, planted at "
+                  f"{g_db.ids[k]} {local}")
+            shown += 1
+        # run_seeding against the host finish on the full fetch of K1's
+        # rows
+        batch = setup_batch(g_reads, g_db, options, dev)
+        kw, okw = batch.seed_kw, batch.oracle_kw
+        t0 = time.time()
+        got = run_seeding(batch.seed_dev, **kw)
+        t_dev = time.time() - t0
+        ctx, k1_args, n_raw = ungapped_inputs(batch.seed_dev, **kw)
+        ung = k1(*k1_args)
+        rows = [t.cpu().numpy() for t in (k1_args[3], k1_args[4], ctx,
+                                          *ung[:4])]
+        n_ctx = len(kw["x_dropoffs"])
+        t0 = time.time()
+        want = _finish_init_hits(
+            *rows, okw["word_cutoffs"], okw["subject_starts"],
+            kw["word_size"],
+            concat_qlen=int(kw["context_offsets"][n_ctx]) - 2,
+            approx_ctx=okw["approx_ctx"])
+        t_host = time.time() - t0
+        for name in ("q_off", "s_off", "q_start", "s_start", "length",
+                     "score", "context", "oid"):
+            check(np.array_equal(getattr(got, name), getattr(want, name)),
+                  f"{tag}: run_seeding's {name} differs from the host "
+                  "finish")
+        check(int(np.max(got.s_start)) > (1 << 31),
+              f"{tag}: no saved seed past 2^31")
+        r = next(iter(g_db._torch_resident.values()))
+        held = nbytes(r.packed, r.subject2, r.valid, r.subject_w, r.starts,
+                      r.ends)
+        from gblastn_tpu_torch.engine.seeding import NARROW_SUBJECT
+
+        layout = rp.key_layout(g_db.num_seqs, r.longest,
+                               batch.seed_dev.query_packed.numel(), 0)
+        key_note = (f"R's key one sort of {layout} bits" if layout else
+                    "R's key two sorts (the packed key passes 63 bits)")
+        key_note += (", R's wide kernels (int64 coordinates)"
+                     if r.longest >= NARROW_SUBJECT else
+                     ", R's narrow kernels")
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        check(peak_reserved - held <= SEARCH_WORK_BYTES,
+              f"{tag}: the search took {peak_reserved - held} bytes beside "
+              f"the resident form, past the check's {SEARCH_WORK_BYTES}")
+        # resident_bytes' chunk and subject terms, SEARCH_WORK_BYTES
+        largest = int((free0 - SEARCH_WORK_BYTES - 16 * BUILD_CHUNK - 16)
+                      / BYTES_PER_BASE)
+        top = sorted(spans.items(), key=lambda kv: -kv[1])[:6]
+        print(f"{tag}: {g_db.num_seqs} subjects, {g_db.total_length} bases "
+              f"({g_db.padded_length} padded; host build {t_db:.1f} s); "
+              f"{len(pairs)} reads all found at their plants, 0 mismatches, "
+              f"{n_far} hits past 2^31, {shown} printed at their plants by "
+              f"-outfmt 6; launches K1 {launch[0]} K2 {launch[1]} G "
+              f"{launch[2]} R {launch[3]} RR {launch[4]}; search() "
+              f"{t_cold:.2f} s cold (with the upload) ("
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in top)
+              + f"); resident {held} bytes = {held / g_db.padded_length:.3f}"
+              f" B a base; peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB; the search's own {peak - held}, "
+              f"{peak_reserved - held} of the allocator's peak reserve "
+              f"{peak_reserved}; the check allows {SEARCH_WORK_BYTES}); "
+              f"{free0} of {total} bytes of the card free before the "
+              f"upload, so by the check the largest database it holds is "
+              f"about {largest} bases; peak RSS {rss / 2**30:.2f} GiB; "
+              f"run_seeding {t_dev * 1e3:.1f} ms warm, {n_raw} raw seeds, "
+              f"{k1_args[3].numel()} K1 seeds, {len(got)} saved, equal "
+              f"field by field to the host finish ({t_host:.2f} s); "
+              f"{key_note}  [{card}]")
+        del batch, res, r
+        return launch
+
     # 6f. query splitting (ROADMAP item 10): a second strain's assembly as
     # one query longer than the chunk (segments of 20 kb from random
     # places and strands of config 1's genome, 2% substitutions), 5.5 Mb
@@ -1684,6 +1897,95 @@ def main() -> int:
           f" s  [{card}]")
     new_paths["formatter_archive_cli"] = arc_launch
 
+    # 6j. the database's masks (ROADMAP item 13): a mask column over
+    # config 1's genome, intervals of 300-3,000 bases covering 30% of it
+    # (about what a repeat annotation marks on a mammalian genome), built
+    # by makedb -mask_data; config 1 through the CLI with -db_soft_mask and
+    # with -db_hard_mask: cuda bytes equal cpu bytes, and differ from the
+    # unmasked run's
+    t_mask = time.time()
+    rng9 = np.random.default_rng(SEED + 12)
+    ivs, at = [], int(rng9.integers(0, 3000))
+    while True:
+        n_iv = int(rng9.integers(300, 3001))
+        if at + n_iv > len(genome):
+            break
+        ivs.append((at, at + n_iv))
+        # gaps of 7/3 an interval's mean length: 30% of the genome masked
+        at += n_iv + int(rng9.integers(1, 2 * 1650 * 7 // 3))
+    covered = sum(b - a for a, b in ivs) / len(genome)
+    check(0.25 < covered < 0.35, f"the mask covers {covered:.1%}")
+    (work / "mask.intervals").write_text(
+        ">ecoli_synth\n" + "".join(f"{a} - {b - 1}\n" for a, b in ivs))
+    check(cli_main(["makedb", "-in", str(work / "genome.fa"), "-out",
+                    str(work / "db_mask"), "-title", "ecoli_synth",
+                    "-mask_data", str(work / "mask.intervals"), "-mask_id",
+                    "40"]) == 0, "makedb -mask_data failed")
+    unmasked1 = (work / "config1_cuda.tsv").read_bytes()
+    c1_args = ["blastn", "-task", "megablast", "-evalue", "1e-5", "-query",
+               str(work / "config1.fa"), "-outfmt", "6", "-max_target_seqs",
+               "10"]
+    mask_out = {}
+    mask_notes = []
+    for flag in ("-db_soft_mask", "-db_hard_mask"):
+        tag = flag.strip("-")
+        args = c1_args + ["-db", str(work / "db_mask"), flag, "40"]
+        out, launch, t_cuda, _spans = card_run(args, work / f"{tag}.tsv")
+        t_cpu = run_cli(args, "cpu", work / f"{tag}_cpu.tsv")
+        check(out == (work / f"{tag}_cpu.tsv").read_bytes(),
+              f"config 1 {flag}: cuda and cpu bytes differ")
+        check(out != unmasked1, f"config 1 {flag}: the bytes of the unmasked "
+                             "run")
+        check(launch[0] == launch[2] == launch[3] == 1,
+              f"config 1 {flag}: launches K1/K2/G/R/RR {launch}")
+        mask_out[tag] = out
+        new_paths[f"config1_{tag}_cli"] = launch
+        mask_notes.append(
+            f"{flag} {out.count(b'\n')} tabular lines (unmasked "
+            f"{unmasked1.count(b'\n')}), cuda {t_cuda:.2f} s, cpu {t_cpu:.2f} "
+            f"s, bytes equal")
+    check(mask_out["db_soft_mask"] != mask_out["db_hard_mask"],
+          "the soft and hard masks gave the same bytes")
+    print(f"db masks (config 1): {len(ivs)} intervals of 300-3,000 bases, "
+          f"{covered:.1%} of the genome; " + "; ".join(mask_notes)
+          + f"; phase {time.time() - t_mask:.1f} s  [{card}]")
+
+    # 6k. indexed megablast (ROADMAP item 13): makembindex over config 1's
+    # database, then config 1 through the CLI with -use_index true, plain
+    # and with -db_soft_mask: cuda bytes equal cpu bytes and the scanned
+    # runs' bytes
+    t_idx = time.time()
+    for name in ("db", "db_mask"):
+        check(cli_main(["makembindex", "-input", str(work / name)]) == 0,
+              f"makembindex {name} failed")
+    idx_notes = []
+    for tag, db_name, extra, scanned in (
+            ("index", "db", [], unmasked1),
+            ("index_soft", "db_mask", ["-db_soft_mask", "40"],
+             mask_out["db_soft_mask"])):
+        args = c1_args + ["-db", str(work / db_name), "-use_index", "true",
+                          *extra]
+        out, launch, t_cuda, spans = card_run(args, work / f"{tag}.tsv")
+        t_cpu = run_cli(args, "cpu", work / f"{tag}_cpu.tsv")
+        check(out == (work / f"{tag}_cpu.tsv").read_bytes(),
+              f"config 1 -use_index {extra}: cuda and cpu bytes differ")
+        check(out == scanned, f"config 1 -use_index {extra}: the bytes "
+                              "differ from the scanned run's")
+        check("setup.index_upload" in spans,
+              f"config 1 -use_index {extra}: the index was not used")
+        check(launch[0] == launch[2] == launch[3] == 1,
+              f"config 1 -use_index {extra}: launches K1/K2/G/R/RR {launch}")
+        new_paths[f"config1_{tag}_cli"] = launch
+        idx_notes.append(
+            f"-use_index {' '.join(extra) or '(plain)'}: "
+            f"{out.count(b'\n')} lines equal to the scan's, cuda "
+            f"{t_cuda:.2f} s (setup.index_upload "
+            f"{spans['setup.index_upload'] * 1e3:.1f} ms, device.seeding "
+            f"{spans['device.seeding'] * 1e3:.1f} ms), cpu {t_cpu:.2f} s, "
+            "bytes equal")
+    print("db index (config 1): " + "; ".join(idx_notes)
+          + f"; phase {time.time() - t_idx:.1f} s  [{card}]")
+
     del genome, db, reads, reads2, reads2d
 
     # 7. scale: one 500-read batch against a 300 Mb resident genome
@@ -1718,6 +2020,49 @@ def main() -> int:
           f"{len(big_reads)} reads, all loci found, peak device memory "
           f"{peak / 2**30:.2f} GiB  [{card}]")
 
+    del big_db, res, big_reads
+    torch.cuda.empty_cache()
+
+    # 7a. genome scale (ROADMAP item 13): giant (bench.py's config 4, one
+    # random subject of 3.2 Gbases) and chroms (GRCh38's 24 primary
+    # chromosomes' lengths, 3.09 Gbases), 100 planted 1 kb reads each,
+    # megablast through search() on one card with the whole database
+    # resident and int64 coordinates
+    from gblastn_tpu_torch.tools.workloads import (
+        chroms_workload,
+        giant_workload,
+    )
+
+    # 7b. the genome-scale path's kernels past 2^31 against their plain
+    # versions, one launch alone timed: K1, G, RR (its wide kernel: the
+    # subject's words pass 2^31) and R's one-hit and two-hit kernels on
+    # int64 coordinates, on a single random subject of 2^31 + 2^22 bases
+    # made on the card (replay_sets.past_2g_cases)
+    t0 = time.time()
+    far = replay_sets.past_2g_cases(dev)
+    check(far["rr"][0][1].numel() * 16 > 1 << 31,
+          "the past-2^31 subject's words do not pass 2^31")
+    k1_far = compare_k1(far["k1"][0], "past 2^31", card, 20)
+    g_far = compare_gate(*far["g"], "past 2^31", card, 20)
+    rr_far = compare_run(*far["rr"], "past 2^31", card, 20)
+    r_far = compare_replay(*far["r"], "past 2^31, one-hit", card, 20)
+    r2_far = compare_replay(*far["r_two_hit"], "past 2^31, two-hit", card,
+                            20)
+    del far
+    torch.cuda.empty_cache()
+    print(f"past 2^31: {time.time() - t0:.1f} s  [{card}]")
+
+    for tag, make in (("giant", giant_workload), ("chroms", chroms_workload)):
+        t0 = time.time()
+        made = make()
+        g_db, g_pairs, g_plants = made[:3]
+        g_owner = made[3] if len(made) > 3 else [0] * len(g_pairs)
+        t_db = time.time() - t0
+        new_paths[f"{tag}_search"] = genome_phase(
+            tag, g_db, g_pairs, g_plants, g_owner, t_db)
+        del made, g_db
+        torch.cuda.empty_cache()
+
     # slice 2's main path is config 2 through the CLI; K1 and K2 are
     # timed at its shapes (K1 also at config 1's); the table gather's
     # path is prof_scan_parts, and it is timed at P3's shape
@@ -1727,17 +2072,19 @@ def main() -> int:
              **new_paths}
     k2_err = max([k2_c2[0]] + [r[0] for r in k2_rand])
     g_recs = {"config2": g_c2, "config1": g_c1, "random": g_rand,
-              **g2_recs}
+              **g2_recs, "past2g": g_far}
     r_recs = {"config2": r_c2, "config1": r_c1,
               **{f"random{i}": r for i, r in enumerate(r_rand)},
               **r2_recs,
-              **{f"random_two_hit{i}": r for i, r in enumerate(r2_rand)}}
-    rr_all = {**rr_recs, "random11": rr_rand[0], "random28": rr_rand[1]}
+              **{f"random_two_hit{i}": r for i, r in enumerate(r2_rand)},
+              "past2g": r_far, "past2g_two_hit": r2_far}
+    rr_all = {**rr_recs, "random11": rr_rand[0], "random28": rr_rand[1],
+              "past2g": rr_far}
     print(smi)
     print(json.dumps({"kernels": [
         k1_entry(k1_c2, k1_c1, k1_rand, c2_launches[0],
                  {p: c[0] for p, c in paths.items()}, regs["K1"],
-                 {"config2d": k1_2d}),
+                 {"config2d": k1_2d, "past2g": k1_far}),
         {"name": "gapped_band", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": c2_launches[1],
          "max_abs_err": k2_err, "ms": k2_c2[1], "plain_ms": k2_c2[2],

@@ -31,6 +31,12 @@
 // pointer), flags |= 2. Every gated seed gets flags |= 1. Other seeds
 // keep K1's rows.
 //
+// Coordinates: the seeds' subject offsets (s_off, K1's s_start) and the
+// output s_start are int64, as are the packed subject's length and the
+// subject bounds, so a seed may lie anywhere in a resident database of any
+// size; query offsets, lengths, scores and the walks' step counts stay
+// int32.
+//
 // Ranges, checked here so that a launch waits on nothing: a seed whose
 // context or subject index is out of range, or whose walks would read
 // outside the query buffer or the packed subject, gets FLAG_RANGE = 8,
@@ -84,12 +90,17 @@ constexpr int kFlagDemote = 2;
 constexpr int kFlagRange = 8;
 
 struct Seeds {
-  const int32_t *q_off, *s_off, *ctx, *oid, *ug_q, *ug_s, *ug_len,
-      *ug_score;
+  const int32_t* q_off;
+  const long long* s_off;
+  const int32_t *ctx, *oid, *ug_q;
+  const long long* ug_s;
+  const int32_t *ug_len, *ug_score;
 };
 
 struct Outs {
-  int32_t *q, *s, *len, *score, *flags;
+  int32_t* q;
+  long long* s;
+  int32_t *len, *score, *flags;
 };
 
 struct Gate {
@@ -101,7 +112,8 @@ struct Gate {
   const long long* sub_ends;
   Seeds in;
   const int32_t* right_run;
-  int QB, P, n_ctx, n_sub, n, word, concat_end;
+  long long P;
+  int QB, n_ctx, n_sub, n, word, concat_end;
   Outs out;
 };
 
@@ -118,7 +130,7 @@ __device__ __forceinline__ bool geometry(const Gate& g, int i, Geo& w) {
   const bool ok = o >= 0 && o < g.n_sub;
   w.st = ok ? __ldg(g.sub_starts + o) : 0;
   const long long en = ok ? __ldg(g.sub_ends + o) : 0;
-  const long long s_loc = (long long)__ldg(g.in.s_off + i) - w.st;
+  const long long s_loc = __ldg(g.in.s_off + i) - w.st;
   const long long adj = (4 - (s_loc & 3)) & 3;
   w.q_ext = (long long)__ldg(g.in.q_off + i) - 1 + adj;
   w.s_ext = s_loc + adj;
@@ -138,8 +150,9 @@ __device__ __forceinline__ bool geometry(const Gate& g, int i, Geo& w) {
                              w.sb >= 0 && w.sb + w.n_right <= g.P));
 }
 
-__device__ __forceinline__ void put(const Gate& g, int i, int q, int s,
-                                    int len, int score, int flags) {
+__device__ __forceinline__ void put(const Gate& g, int i, int q,
+                                    long long s, int len, int score,
+                                    int flags) {
   g.out.q[i] = q;
   g.out.s[i] = s;
   g.out.len[i] = len;
@@ -279,7 +292,8 @@ __device__ __forceinline__ void seed_walk(const Gate& g, const int* tab,
 // A walked seed's outputs from its two walks.
 __device__ __forceinline__ void gate_put(const Gate& g, int i, int c,
                                          const Geo& w, Walk l, Walk r) {
-  int rq = __ldg(g.in.ug_q + i), rs = __ldg(g.in.ug_s + i);
+  int rq = __ldg(g.in.ug_q + i);
+  long long rs = __ldg(g.in.ug_s + i);
   int rlen = __ldg(g.in.ug_len + i), rscore = __ldg(g.in.ug_score + i);
   int flags = kFlagNeed;
   const int a_score = l.best + r.best;
@@ -290,11 +304,10 @@ __device__ __forceinline__ void gate_put(const Gate& g, int i, int c,
     const long long a_r =
         (r.pos > 0 ? w.q_ext + 4LL * r.pos - 1 : w.q_ext) + 1;
     const long long run = g.right_run != nullptr ? g.right_run[i] : 0;
-    const long long by_seed =
-        (long long)__ldg(g.in.s_off + i) + g.word + run - a_s;
+    const long long by_seed = __ldg(g.in.s_off + i) + g.word + run - a_s;
     const long long by_walk = a_r - a_q + 1;
     rq = (int)a_q;
-    rs = (int)a_s;
+    rs = a_s;
     rlen = (int)(by_seed > by_walk ? by_seed : by_walk);
     rscore = a_score;
   }
@@ -345,20 +358,21 @@ extern "C" int gblastn_approx_gate(
     const void* ctx_tables, const void* sub_starts, const void* sub_ends,
     const void* q_off, const void* s_off, const void* ctx, const void* oid,
     const void* ug_q, const void* ug_s, const void* ug_len,
-    const void* ug_score, const void* right_run, int QB, int P, int n_ctx,
-    int n_sub, int n, int word, int concat_end, void* out_q, void* out_s,
+    const void* ug_score, const void* right_run, int QB, long long P,
+    int n_ctx, int n_sub, int n, int word, int concat_end, void* out_q,
+    void* out_s,
     void* out_len, void* out_score, void* out_flags, void* stream) {
   if (n <= 0) return 0;
   const Gate g{(const uint8_t*)qbytes, (const uint8_t*)packed,
                (const int32_t*)table256, (const int32_t*)ctx_tables,
                (const long long*)sub_starts, (const long long*)sub_ends,
-               Seeds{(const int32_t*)q_off, (const int32_t*)s_off,
+               Seeds{(const int32_t*)q_off, (const long long*)s_off,
                      (const int32_t*)ctx, (const int32_t*)oid,
-                     (const int32_t*)ug_q, (const int32_t*)ug_s,
+                     (const int32_t*)ug_q, (const long long*)ug_s,
                      (const int32_t*)ug_len, (const int32_t*)ug_score},
-               (const int32_t*)right_run, QB, P, n_ctx, n_sub, n, word,
+               (const int32_t*)right_run, P, QB, n_ctx, n_sub, n, word,
                concat_end,
-               Outs{(int32_t*)out_q, (int32_t*)out_s, (int32_t*)out_len,
+               Outs{(int32_t*)out_q, (long long*)out_s, (int32_t*)out_len,
                     (int32_t*)out_score, (int32_t*)out_flags}};
   approx_gate_kernel<<<(int)(((long long)n + kThreads - 1) / kThreads),
                        kThreads, 0, (cudaStream_t)stream>>>(g);

@@ -34,16 +34,21 @@
 // no run read) and diag_replay_two_hit_kernel (int64 state, the flag and
 // the runs), so that the one-hit paths pay nothing for the two-hit
 // machine (with one kernel for both, one-hit R took 6% longer at 887,574
-// seeds on an H100).
+// seeds on an H100). Each has a wide twin, diag_replay_wide_kernel and
+// diag_replay_two_hit_wide_kernel, that reads int64 subject-local
+// coordinates and keeps int64 state: the batch's longest subject decides
+// (engine/seeding.py::replay_inputs), so a subject past 2^31 bases is
+// replayed exactly and every other batch keeps the narrow kernels' loads
+// and registers.
 //
 // The caller sorts (ops/replay.py::replay_keys): key[p] is the sorted
 // key of the seed at sorted position p, order[p] its index, and a segment
 // (one oid and masked diagonal) is a run of equal key[p] >> key_shift:
 // one stable sort of a packed key (oid, diagonal, s, and q with a mask)
 // where it fits 63 bits, else the primary key (oid << 32 | masked
-// diagonal + 2^31) of two stable sorts, with shift 0. The per-seed
-// arrays stay in the original order, in subject-local coordinates, so
-// every value is an int32 (the resident bound).
+// diagonal made non-negative) of two stable sorts, with shift 0. The
+// per-seed arrays stay in the original order, in subject-local
+// coordinates: int32 where the longest subject allows it, else int64.
 //
 // A thread a sorted position. A thread whose segment key differs from
 // its left neighbour's heads a segment and walks it in order; every
@@ -97,10 +102,10 @@ constexpr int kStride = 64;       // the search's first stride
 
 // Whether the walk stops at sorted position r: the segment of key k
 // ended there, or its seed starts at or after last.
-template <typename Last>
+template <typename Coord, typename Last>
 __device__ __forceinline__ bool stops(const long long* key,
                                       const long long* order,
-                                      const int32_t* s_loc, int n, int shift,
+                                      const Coord* s_loc, int n, int shift,
                                       long long k, Last last, int r) {
   return r >= n || (__ldg(key + r) >> shift) != k ||
          __ldg(s_loc + __ldg(order + r)) >= last;
@@ -109,9 +114,9 @@ __device__ __forceinline__ bool stops(const long long* key,
 // The first sorted position r >= lo at which the walk stops (keys
 // ascend, and s ascends inside a segment): probes at lo + kStride - 1,
 // then strides that double, then a binary search inside the last one.
-template <typename Last>
+template <typename Coord, typename Last>
 __device__ int next_stop(const long long* key, const long long* order,
-                         const int32_t* s_loc, int n, int shift, long long k,
+                         const Coord* s_loc, int n, int shift, long long k,
                          Last last, int lo) {
   long long step = 2 * kStride;
   int hi = (int)(lo + kStride - 1LL < n ? lo + kStride - 1LL : n);
@@ -147,21 +152,24 @@ __device__ __forceinline__ int fetch_group(const long long* key,
   return m;
 }
 
-// The walk of the segment headed by sorted position p. One-hit keeps
-// int32 state and reads no run; two-hit keeps int64 state (last +
-// window and s + word + run must not wrap), the flag, and each seed's
-// run (right_run, or 0 where it is a null pointer).
-template <bool kTwoHit>
+// The walk of the segment headed by sorted position p, over int32 or
+// int64 (Coord) subject-local coordinates. One-hit keeps int32 state on
+// int32 coordinates and reads no run; two-hit keeps int64 state (last +
+// window and s + word + run must not wrap), the flag, and each seed's run
+// (right_run, or 0 where it is a null pointer); int64 coordinates keep
+// int64 state in both.
+template <bool kTwoHit, typename Coord>
 __device__ __forceinline__ void walk(const long long* __restrict__ key,
                                      const long long* __restrict__ order,
-                                     const int32_t* __restrict__ s_loc,
-                                     const int32_t* __restrict__ end_loc,
+                                     const Coord* __restrict__ s_loc,
+                                     const Coord* __restrict__ end_loc,
                                      const int32_t* __restrict__ score,
                                      const int32_t* __restrict__ cutoff,
                                      const int32_t* __restrict__ right_run,
                                      int n, int shift, int word, int window,
                                      int p, uint8_t* __restrict__ saved) {
-  using Last = typename std::conditional<kTwoHit, long long, int>::type;
+  using Last = typename std::conditional<
+      kTwoHit || sizeof(Coord) == 8, long long, int>::type;
   // the first group's keys and indices come with the left neighbour's
   // key, in one round of loads; a thread that does not head a segment
   // exits
@@ -182,7 +190,8 @@ __device__ __forceinline__ void walk(const long long* __restrict__ key,
   Last last = kTwoHit ? -window : 0;
   bool flag = false;
   for (int p0 = p;;) {
-    int idx[kGroup], s[kGroup], e[kGroup], run[kGroup];
+    int idx[kGroup], run[kGroup];
+    Coord s[kGroup], e[kGroup];
     unsigned pass = 0;    // bit t: seed t meets its cutoff
 #pragma unroll
     for (int t = 0; t < kGroup; ++t) {
@@ -218,6 +227,40 @@ __device__ __forceinline__ void walk(const long long* __restrict__ key,
   }
 }
 
+// A thread a sorted position, at the head of its segment: the one-hit
+// walk over Coord subject-local coordinates.
+template <typename Coord>
+__device__ __forceinline__ void one_hit_at(const long long* key,
+                                           const long long* order,
+                                           const Coord* s_loc,
+                                           const Coord* end_loc,
+                                           const int32_t* score,
+                                           const int32_t* cutoff, int n,
+                                           int shift, int word,
+                                           uint8_t* saved) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < n)
+    walk<false>(key, order, s_loc, end_loc, score, cutoff, nullptr, n,
+                shift, word, 0, p, saved);
+}
+
+// The same for the two-hit walk.
+template <typename Coord>
+__device__ __forceinline__ void two_hit_at(const long long* key,
+                                           const long long* order,
+                                           const Coord* s_loc,
+                                           const Coord* end_loc,
+                                           const int32_t* score,
+                                           const int32_t* cutoff,
+                                           const int32_t* right_run, int n,
+                                           int shift, int word, int window,
+                                           uint8_t* saved) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < n)
+    walk<true>(key, order, s_loc, end_loc, score, cutoff, right_run, n,
+               shift, word, window, p, saved);
+}
+
 __global__ void __launch_bounds__(kThreads)
 diag_replay_kernel(const long long* __restrict__ key,
                    const long long* __restrict__ order,
@@ -226,10 +269,20 @@ diag_replay_kernel(const long long* __restrict__ key,
                    const int32_t* __restrict__ score,
                    const int32_t* __restrict__ cutoff, int n, int shift,
                    int word, uint8_t* __restrict__ saved) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p < n)
-    walk<false>(key, order, s_loc, end_loc, score, cutoff, nullptr, n,
-                shift, word, 0, p, saved);
+  one_hit_at(key, order, s_loc, end_loc, score, cutoff, n, shift, word,
+             saved);
+}
+
+__global__ void __launch_bounds__(kThreads)
+diag_replay_wide_kernel(const long long* __restrict__ key,
+                        const long long* __restrict__ order,
+                        const long long* __restrict__ s_loc,
+                        const long long* __restrict__ end_loc,
+                        const int32_t* __restrict__ score,
+                        const int32_t* __restrict__ cutoff, int n,
+                        int shift, int word, uint8_t* __restrict__ saved) {
+  one_hit_at(key, order, s_loc, end_loc, score, cutoff, n, shift, word,
+             saved);
 }
 
 // at least three blocks a SM (the int64 state and the runs take more
@@ -244,10 +297,46 @@ diag_replay_two_hit_kernel(const long long* __restrict__ key,
                            const int32_t* __restrict__ right_run, int n,
                            int shift, int word, int window,
                            uint8_t* __restrict__ saved) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p < n)
-    walk<true>(key, order, s_loc, end_loc, score, cutoff, right_run, n,
-               shift, word, window, p, saved);
+  two_hit_at(key, order, s_loc, end_loc, score, cutoff, right_run, n, shift,
+             word, window, saved);
+}
+
+// two blocks a SM at least: int64 coordinates and state as well (it
+// runs only past 2^31 bases, where the seeds are few)
+__global__ void __launch_bounds__(kThreads, 2)
+diag_replay_two_hit_wide_kernel(const long long* __restrict__ key,
+                                const long long* __restrict__ order,
+                                const long long* __restrict__ s_loc,
+                                const long long* __restrict__ end_loc,
+                                const int32_t* __restrict__ score,
+                                const int32_t* __restrict__ cutoff,
+                                const int32_t* __restrict__ right_run,
+                                int n, int shift, int word, int window,
+                                uint8_t* __restrict__ saved) {
+  two_hit_at(key, order, s_loc, end_loc, score, cutoff, right_run, n, shift,
+             word, window, saved);
+}
+
+// Launches the kernel of `window` (one-hit or two-hit) over Coord
+// coordinates.
+template <typename Coord, typename OneHit, typename TwoHit>
+void launch(OneHit one_hit, TwoHit two_hit, const void* key,
+            const void* order, const void* s_loc, const void* end_loc,
+            const void* score, const void* cutoff, const void* right_run,
+            int n, int word, int window, int key_shift, void* saved,
+            cudaStream_t st) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (window > 0)
+    two_hit<<<blocks, kThreads, 0, st>>>(
+        (const long long*)key, (const long long*)order,
+        (const Coord*)s_loc, (const Coord*)end_loc, (const int32_t*)score,
+        (const int32_t*)cutoff, (const int32_t*)right_run, n, key_shift,
+        word, window, (uint8_t*)saved);
+  else
+    one_hit<<<blocks, kThreads, 0, st>>>(
+        (const long long*)key, (const long long*)order,
+        (const Coord*)s_loc, (const Coord*)end_loc, (const int32_t*)score,
+        (const int32_t*)cutoff, n, key_shift, word, (uint8_t*)saved);
 }
 
 }  // namespace
@@ -255,27 +344,23 @@ diag_replay_two_hit_kernel(const long long* __restrict__ key,
 // Plain C entry point (bound with ctypes). Launches on `stream`, reads no
 // host value and waits on nothing; returns cudaGetLastError() as an int
 // (0 = launched).
+// s_loc and end_loc are int64 where `wide` is nonzero, else int32.
 extern "C" int gblastn_diag_replay(const void* key, const void* order,
                                    const void* s_loc, const void* end_loc,
                                    const void* score, const void* cutoff,
                                    const void* right_run, int n, int word,
-                                   int window, int key_shift, void* saved,
-                                   void* stream) {
+                                   int window, int key_shift, int wide,
+                                   void* saved, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  if (window > 0)
-    diag_replay_two_hit_kernel<<<blocks, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const long long*)key, (const long long*)order,
-        (const int32_t*)s_loc, (const int32_t*)end_loc,
-        (const int32_t*)score, (const int32_t*)cutoff,
-        (const int32_t*)right_run, n, key_shift, word, window,
-        (uint8_t*)saved);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wide)
+    launch<long long>(diag_replay_wide_kernel,
+                      diag_replay_two_hit_wide_kernel, key, order, s_loc,
+                      end_loc, score, cutoff, right_run, n, word, window,
+                      key_shift, saved, st);
   else
-    diag_replay_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const long long*)key, (const long long*)order,
-        (const int32_t*)s_loc, (const int32_t*)end_loc,
-        (const int32_t*)score, (const int32_t*)cutoff, n, key_shift, word,
-        (uint8_t*)saved);
+    launch<int32_t>(diag_replay_kernel, diag_replay_two_hit_kernel, key,
+                    order, s_loc, end_loc, score, cutoff, right_run, n,
+                    word, window, key_shift, saved, st);
   return (int)cudaGetLastError();
 }

@@ -37,13 +37,17 @@
 //     window of sixteen matches: one step at word 11, two at word 28,
 //     where a walk of a base a step takes up to 28 dependent compares.
 //   * A seed whose subject index is out of range has a run of 0 and
-//     reads nothing, as in the plain version. The wrapper keeps every
-//     position below 2^31 (ops/replay.py::right_run), so the walk's
-//     offsets are 32-bit; the limits are taken in 64 bits.
+//     reads nothing, as in the plain version. Subject offsets (s_off,
+//     the subject words' count S16) are int64, so a seed may lie
+//     anywhere in a resident database of any size; the subject word
+//     index is an int below 2^31 subject bases (right_run_kernel) and a
+//     long long past it (right_run_wide_kernel); the query's offsets stay
+//     32-bit (the wrapper keeps its buffer below 2^31), and the limits
+//     are taken in 64 bits.
 // tests/test_torch_rr.py holds a torch emulation of this arithmetic to
 // the plain version at every query and subject phase.
 //
-// What bounds it: bytes. Each seed reads q_off, s_off and oid (12 bytes)
+// What bounds it: bytes. Each seed reads q_off, s_off and oid (16 bytes)
 // and writes its run (4); of the query nibbles, the subject words and the
 // subject ends it needs only the words that hold a base it compares (from
 // the word end through the base that stops the run short of its limit)
@@ -73,34 +77,41 @@ __device__ __forceinline__ uint64_t one_hot(uint32_t codes) {
          ((y & ~x & kLow) << 2) | ((x & y & kLow) << 3);
 }
 
-__device__ __forceinline__ uint32_t word_at(const long long* p, int i,
-                                            int last) {
+template <typename Index>
+__device__ __forceinline__ uint32_t word_at(const long long* p, Index i,
+                                            Index last) {
   return i <= last ? (uint32_t)__ldg(p + i) : 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-right_run_kernel(const long long* __restrict__ query_nib,
-                 const long long* __restrict__ subject_w,
-                 const long long* __restrict__ sub_ends,
-                 const int32_t* __restrict__ q_off,
-                 const int32_t* __restrict__ s_off,
-                 const int32_t* __restrict__ oid, int Q8, int S16,
-                 int n_sub, int n, int word, int32_t* __restrict__ out) {
+// The run of seed i. Index is the subject words' index type: int where
+// the subject words number below 2^27 (16 * S16 < 2^31), as the kernel
+// was before its offsets widened, else long long.
+template <typename Index>
+__device__ __forceinline__ void run_at(const long long* __restrict__ query_nib,
+                                       const long long* __restrict__ subject_w,
+                                       const long long* __restrict__ sub_ends,
+                                       const int32_t* __restrict__ q_off,
+                                       const long long* __restrict__ s_off,
+                                       const int32_t* __restrict__ oid,
+                                       int Q8, long long S16, int n_sub,
+                                       int n, int word,
+                                       int32_t* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int o = oid[i];
   int run = 0;
   if (o >= 0 && o < n_sub) {
     const long long q64 = (long long)q_off[i] + word;
-    const long long s64 = (long long)s_off[i] + word;
+    const long long s64 = s_off[i] + word;
     if (q64 >= 0 && s64 >= 0 && q64 < 8LL * Q8 && s64 < 16LL * S16) {
-      const int q = (int)q64, s = (int)s64;
+      const int q = (int)q64;
       // the last words that can hold a base of the run (the word size
       // and the arrays' ends), so the first loads need no subject end
       const int q_last = (int)min((long long)Q8 - 1, (q64 + word - 1) >> 3);
-      const int s_last = (int)min((long long)S16 - 1, (s64 + word - 1) >> 4);
-      int qw = q >> 3, sw = s >> 4;
-      const int qsh = (q & 7) << 2, ssh = (s & 15) << 1;
+      const Index s_last = (Index)min(S16 - 1, (s64 + word - 1) >> 4);
+      int qw = q >> 3;
+      Index sw = (Index)(s64 >> 4);
+      const int qsh = (q & 7) << 2, ssh = (int)(s64 & 15) << 1;
       uint32_t w0 = word_at(query_nib, qw, q_last);
       uint32_t w1 = word_at(query_nib, qw + 1, q_last);
       uint32_t w2 = word_at(query_nib, qw + 2, q_last);
@@ -139,6 +150,31 @@ right_run_kernel(const long long* __restrict__ query_nib,
   out[i] = run;
 }
 
+__global__ void __launch_bounds__(kThreads)
+right_run_kernel(const long long* __restrict__ query_nib,
+                 const long long* __restrict__ subject_w,
+                 const long long* __restrict__ sub_ends,
+                 const int32_t* __restrict__ q_off,
+                 const long long* __restrict__ s_off,
+                 const int32_t* __restrict__ oid, int Q8, long long S16,
+                 int n_sub, int n, int word, int32_t* __restrict__ out) {
+  run_at<int>(query_nib, subject_w, sub_ends, q_off, s_off, oid, Q8, S16,
+              n_sub, n, word, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+right_run_wide_kernel(const long long* __restrict__ query_nib,
+                      const long long* __restrict__ subject_w,
+                      const long long* __restrict__ sub_ends,
+                      const int32_t* __restrict__ q_off,
+                      const long long* __restrict__ s_off,
+                      const int32_t* __restrict__ oid, int Q8,
+                      long long S16, int n_sub, int n, int word,
+                      int32_t* __restrict__ out) {
+  run_at<long long>(query_nib, subject_w, sub_ends, q_off, s_off, oid, Q8,
+                    S16, n_sub, n, word, out);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, reads no
@@ -148,14 +184,16 @@ extern "C" int gblastn_right_run(const void* query_nib,
                                  const void* subject_w,
                                  const void* sub_ends, const void* q_off,
                                  const void* s_off, const void* oid, int Q8,
-                                 int S16, int n_sub, int n, int word,
+                                 long long S16, int n_sub, int n, int word,
                                  void* out, void* stream) {
   if (n <= 0) return 0;
-  right_run_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                     (cudaStream_t)stream>>>(
+  const auto kernel =
+      16LL * S16 < (1LL << 31) ? right_run_kernel : right_run_wide_kernel;
+  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+           (cudaStream_t)stream>>>(
       (const long long*)query_nib, (const long long*)subject_w,
       (const long long*)sub_ends, (const int32_t*)q_off,
-      (const int32_t*)s_off, (const int32_t*)oid, Q8, S16, n_sub, n, word,
+      (const long long*)s_off, (const int32_t*)oid, Q8, S16, n_sub, n, word,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,12 @@
 // the left / right walk ended at its step budget. Bit 0 (window overrun on
 // the TPU) is never set: this kernel has no window.
 //
+// Coordinates: the subject offsets (s_off, the output s_start) and the
+// subject's length S are int64, so a seed may lie anywhere in a resident
+// database of any size, a single subject past 2^31 bases included; the
+// query offsets, the budgets, lengths and scores stay int32 (a walk never
+// leaves the query, whose buffer is below 2^31).
+//
 // Ranges, checked here and not by the caller, so that a launch waits on
 // nothing: a seed needs max_l, max_r >= 0, q_off - max_l >= 0, s_off -
 // max_l >= 0, q_off + max_r <= Q, s_off + max_r <= S and 0 <= x < 2^23.
@@ -118,16 +124,19 @@ __device__ __forceinline__ int ld_s8(const int8_t* p) {
   return v;
 }
 
-__device__ __forceinline__ bool in_range(int q0, int s0, int x, int ml,
-                                         int mr, int Q, int S) {
+__device__ __forceinline__ bool in_range(int q0, long long s0, int x,
+                                         int ml, int mr, int Q,
+                                         long long S) {
   return ml >= 0 && mr >= 0 && x >= 0 && x < kXLimit &&
-         (long long)q0 - ml >= 0 && (long long)s0 - ml >= 0 &&
-         (long long)q0 + mr <= Q && (long long)s0 + mr <= S;
+         (long long)q0 - ml >= 0 && s0 - ml >= 0 &&
+         (long long)q0 + mr <= Q && s0 + mr <= S;
 }
 
 struct Outs {
-  int32_t *q, *s, *len, *score, *flags;
-  __device__ void put(int i, int q0, int s0, int l_pos, int r_pos,
+  int32_t *q;
+  long long* s;
+  int32_t *len, *score, *flags;
+  __device__ void put(int i, int q0, long long s0, int l_pos, int r_pos,
                       int best, int f) const {
     q[i] = q0 - l_pos;
     s[i] = s0 - l_pos;
@@ -142,17 +151,18 @@ k1_kernel(const uint8_t* __restrict__ query,
                  const int8_t* __restrict__ subject,
                  const int32_t* __restrict__ table64,
                  const int32_t* __restrict__ q_off,
-                 const int32_t* __restrict__ s_off,
+                 const long long* __restrict__ s_off,
                  const int32_t* __restrict__ x_drop,
                  const int32_t* __restrict__ max_l,
-                 const int32_t* __restrict__ max_r, int n, int Q, int S,
-                 Outs out) {
+                 const int32_t* __restrict__ max_r, int n, int Q,
+                 long long S, Outs out) {
   __shared__ int tab_[kTable];
   build_table(tab_, table64);
   const unsigned tab = table_address(tab_);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const int q0 = q_off[i], s0 = s_off[i], x = x_drop[i];
+  const int q0 = q_off[i], x = x_drop[i];
+  const long long s0 = s_off[i];
   const int ml = max_l[i], mr = max_r[i];
   if (!in_range(q0, s0, x, ml, mr, Q, S)) {
     out.put(i, q0, s0, 0, 0, 0, kFlagRange);
@@ -168,7 +178,7 @@ k1_kernel(const uint8_t* __restrict__ query,
   // the same test as sum < best - x against the best before the step);
   // best = sum + g.
   const uint8_t* qp = query + ((long long)q0 - kGroup);
-  const int8_t* sp = subject + ((long long)s0 - kGroup);
+  const int8_t* sp = subject + (s0 - kGroup);
   long long dl = -kGroup;
   int rem = ml, j = 0, flags = 0, l_best = 0, l_pos = 0;
   int sum = 0, g = 0, pos = 0;
@@ -256,17 +266,17 @@ k1_kernel(const uint8_t* __restrict__ query,
 extern "C" int gblastn_ungapped_xdrop(
     const void* query, const void* subject, const void* table64,
     const void* q_off, const void* s_off, const void* x_drop,
-    const void* max_l, const void* max_r, int n, int Q, int S,
+    const void* max_l, const void* max_r, int n, int Q, long long S,
     void* out_q, void* out_s, void* out_len, void* out_score,
     void* out_flags, void* stream) {
   if (n <= 0) return 0;
-  const Outs out{(int32_t*)out_q, (int32_t*)out_s, (int32_t*)out_len,
+  const Outs out{(int32_t*)out_q, (long long*)out_s, (int32_t*)out_len,
                  (int32_t*)out_score, (int32_t*)out_flags};
   k1_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
               (cudaStream_t)stream>>>(
       (const uint8_t*)query, (const int8_t*)subject,
       (const int32_t*)table64, (const int32_t*)q_off,
-      (const int32_t*)s_off, (const int32_t*)x_drop,
+      (const long long*)s_off, (const int32_t*)x_drop,
       (const int32_t*)max_l, (const int32_t*)max_r, n, Q, S, out);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,16 @@ host arrays the search reads) and uploads the port's resident form once:
 the 2-bit packed bytes, the derived int8 codes, the validity mask, the
 packed 16-base words and the subject bounds. The result is cached on the
 db object under ``_torch_resident``, one entry per device.
+
+Coordinates are int64 from the scan to R, so the only bound on a
+database's size is the card's memory: before anything is uploaded,
+the bytes the resident form needs (``resident_bytes``) and a search's
+working memory (``SEARCH_WORK_BYTES``, measured) are held against the
+card's free memory, and a database that does not fit raises
+MemoryError naming both. There is no fallback to the CPU or to
+streaming. The derived arrays are built ``ops.seeding.BUILD_CHUNK``
+bases a step, so the upload's transients stay a few hundred MB whatever
+the database's size.
 """
 from __future__ import annotations
 
@@ -16,14 +26,23 @@ import torch
 from gblastn_tpu_torch.io.seqdb import SequenceDB
 from gblastn_tpu_torch.device import resolve_device
 from gblastn_tpu_torch.ops.seeding import (
+    BUILD_CHUNK,
     pack_subject_words,
     unpack_2na,
     valid_from_intervals,
 )
 
-# int32 scan coordinates (the JAX package's resident bound,
-# gblastn_tpu/engine/search.py:521)
-MAX_RESIDENT_BASES = (1 << 31) - (1 << 20)
+# bytes a padded base of the resident form: packed 1/4, subject2 1,
+# valid 1, subject_w 8/16
+BYTES_PER_BASE = 0.25 + 1 + 1 + 0.5
+# device memory a search takes beside the resident form: on giant
+# (chip_smoke.py, 100 x 1 kb reads against one 3.2 Gbase subject) the
+# allocator's peak reserve less the resident bytes was 6.65e9 bytes on
+# an H100 (4.93e9 of it handed out), rounded up here; most of it is the
+# mini-extension's and the scan's chunks (ops.seeding MINI_CHUNK and
+# SCAN_CHUNK), which do not grow with the database (chip_smoke.py
+# checks the reserve against this)
+SEARCH_WORK_BYTES = 7 << 30
 
 
 @dataclass
@@ -44,6 +63,41 @@ class ResidentDB:
         return int(self.subject2.shape[0])
 
 
+def resident_bytes(padded_length: int, num_seqs: int) -> int:
+    """Device bytes that ``resident_from_reference`` needs for a database
+    of ``padded_length`` bases and ``num_seqs`` subjects: the resident
+    arrays, and the largest transient of their chunked build (one chunk's
+    stacked codes and its words' int64 widening)."""
+    resident = int(padded_length * BYTES_PER_BASE) + 16 * num_seqs
+    chunk = min(BUILD_CHUNK, padded_length // 4 + 1)
+    return resident + 16 * chunk
+
+
+def free_bytes(device: torch.device) -> int:
+    """Device memory this process can still take on the CUDA ``device``:
+    the card's free memory and the blocks PyTorch's allocator holds
+    cached but unused."""
+    free, _total = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def check_fits(need: int, device: torch.device) -> None:
+    """MemoryError unless ``need`` bytes and the search's working memory
+    (``SEARCH_WORK_BYTES``) fit in the ``free_bytes`` of the CUDA
+    ``device`` (no check on the CPU: the host's allocator answers for
+    itself)."""
+    if device.type != "cuda":
+        return
+    free = free_bytes(device)
+    if need + SEARCH_WORK_BYTES > free:
+        raise MemoryError(
+            f"the resident database needs {need} bytes of device memory, "
+            f"and a search {SEARCH_WORK_BYTES} more, and {device} has "
+            f"{free} free; the port holds the whole database on one card "
+            "and does not stream")
+
+
 def resident_from_reference(db: SequenceDB,
                             device: str | torch.device) -> ResidentDB:
     """Upload ``db`` to ``device`` (cached on ``db._torch_resident``)."""
@@ -55,12 +109,7 @@ def resident_from_reference(db: SequenceDB,
     res = cache.get(device)
     if res is not None:
         return res
-    if db.padded_length >= MAX_RESIDENT_BASES:
-        raise NotImplementedError(
-            f"database of {db.padded_length} padded bases: the port's "
-            "resident tier holds < 2^31 - 2^20 bases (int32 scan "
-            "coordinates); larger databases are ROADMAP Queue 1 item 13"
-        )
+    check_fits(resident_bytes(db.padded_length, db.num_seqs), device)
     packed = torch.from_numpy(db.packed_padded()).to(device)
     starts = torch.from_numpy(np.asarray(db.starts, np.int64)).to(device)
     ends = starts + torch.from_numpy(

@@ -11,9 +11,15 @@ longer than the task's chunk are split and stitched (engine.split), and
 ``prelim_search_steps`` is the generator form that the pipelined mode
 interleaves (engine.pipeline). The port covers megablast, blastn,
 blastn-short, vecscreen and dc-megablast (every template), with one-hit
-or two-hit seeding (``window_size``), over a database held resident on
-one device; every other search shape raises NotImplementedError naming
-the ROADMAP item that ports it.
+or two-hit seeding (``window_size``), indexed megablast (``use_index``)
+and the database's soft and hard masks, over a database of any size
+held resident on one device (int64 subject coordinates throughout; a
+database the card cannot hold raises, engine.resident). The JAX
+package's subject streaming (GBLASTN_TPU_STREAM,
+GBLASTN_TPU_STREAM_THRESHOLD) is a workaround for the TPU's memory whose
+results equal the resident path's, so the port reads neither variable.
+Two-hit seeding with ``off_diagonal_range`` and multi-device sharding
+raise NotImplementedError naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -121,14 +127,105 @@ def _refuse_outside_slice(options: SearchOptions) -> None:
     if options.window_size > 0 and options.off_diagonal_range > 0:
         no("two-hit seeding with -off_diagonal_range (a replay across "
            "diagonals)", 10)
-    if options.use_index:
-        no("-use_index", 13)
-    if options.db_soft_mask is not None or options.db_hard_mask is not None:
-        no("-db_soft_mask / -db_hard_mask", 13)
     if _shards_requested() > 1:
         no("multi-device sharding (GBLASTN_TPU_SHARDS > 1)", 14)
-    # the resident size bound is checked where the database is uploaded
-    # (engine.resident)
+    # the database's size is bounded only by the card's memory, checked
+    # where it is uploaded (engine.resident)
+
+
+def _warn_once(db, key: str, msg: str) -> None:
+    seen = getattr(db, "_warned", None)
+    if seen is None:
+        seen = set()
+        db._warned = seen
+    if key not in seen:
+        seen.add(key)
+        print(f"gblastn_tpu: {msg}", file=sys.stderr)
+
+
+def _resolve_db_index(db, options):
+    """Load + validate the -use_index database index, or None.
+
+    The loaded index is cached on the db object; every reason to fall
+    back to the scan path is warned once per database (the reference
+    treats a missing index the same way, CIndexedDbException handling
+    in mb_indexed_lookup.c)."""
+    if not options.use_index:
+        return None
+    from gblastn_tpu_torch.lut.dbindex import (
+        INDEX_SUFFIX,
+        index_compatible,
+        load_db_index,
+    )
+
+    cached = getattr(db, "_db_index_cache", None)
+    if cached is None:
+        name = options.index_name or getattr(db, "_source_path", None)
+        if name is None:
+            _warn_once(db, "idx", "-use_index: no -index_name and the "
+                       "database has no on-disk path; scanning instead")
+            db._db_index_cache = False
+            return None
+        try:
+            cached = load_db_index(str(name))
+        except FileNotFoundError:
+            _warn_once(
+                db, "idx",
+                f"-use_index: index {name}{INDEX_SUFFIX} not found "
+                "(build one with makembindex); scanning instead",
+            )
+            cached = False
+        except Exception as e:  # malformed file
+            _warn_once(db, "idx", f"-use_index: cannot load index: {e}; "
+                       "scanning instead")
+            cached = False
+        db._db_index_cache = cached
+    if cached is False:
+        return None
+    reason = index_compatible(cached, db, options.word_size)
+    if reason is not None:
+        _warn_once(db, "idx", f"-use_index: {reason}; scanning instead")
+        return None
+    return cached
+
+
+def _db_mask_intervals(db, options) -> np.ndarray | None:
+    """The database mask intervals (int64[n, 2], sorted, absolute) of
+    -db_soft_mask / -db_hard_mask, or None; a hard mask also renders the
+    masked bases as N on the host (``db.apply_hard_mask``). The two
+    options exclude each other (ValueError); an algorithm the database
+    lacks raises KeyError."""
+    if (options.db_soft_mask is not None
+            and options.db_hard_mask is not None):
+        raise ValueError(
+            "-db_soft_mask and -db_hard_mask are mutually exclusive"
+        )
+    algo = (options.db_soft_mask if options.db_soft_mask is not None
+            else options.db_hard_mask)
+    if algo is None:
+        return None
+    ivs = db.mask_intervals(int(algo))
+    if options.db_hard_mask is not None:
+        db.apply_hard_mask(int(algo))
+    return ivs
+
+
+def _index_on_device(db, index, dev):
+    """The database index's CSR (int32 offsets rebuilt from its sorted
+    words, int32 subject positions) on ``dev``, uploaded once and cached
+    on the db object per device."""
+    cache = getattr(db, "_torch_index", None)
+    if cache is None or cache[0] is not index:
+        cache = (index, {})
+        db._torch_index = cache
+    got = cache[1].get(dev)
+    if got is None:
+        with slog.time("setup.index_upload"):
+            got = (torch.from_numpy(index.offsets()).to(dev),
+                   torch.from_numpy(np.ascontiguousarray(
+                       index.positions, np.int32)).to(dev))
+        cache[1][dev] = got
+    return got
 
 
 @dataclass
@@ -248,6 +345,21 @@ def setup_batch(
             for a, b in ctx_masks:
                 qblock.buffer[a: b + 1] = 14
 
+    # indexed megablast (-use_index): resolve the database index before
+    # the lookup table, whose width is forced to the index's (the seed
+    # set then equals a scan's at that width; lut/dbindex.py); an
+    # unusable index warns once and the search scans
+    db_index = _resolve_db_index(db, options)
+    if db_index is not None and options.template_length:
+        _warn_once(
+            db, "idx-disc",
+            "-use_index does not apply to discontiguous megablast; "
+            "scanning instead",
+        )
+        db_index = None
+    # -db_soft_mask / -db_hard_mask: masked subject words are not seeded
+    db_mask_ivs = _db_mask_intervals(db, options)
+
     lut2 = None   # the second template's table (coding_and_optimal)
     with slog.time("setup.lookup_table"):
         if options.template_length:
@@ -265,7 +377,8 @@ def setup_batch(
         else:
             lut = build_lookup_table(
                 qblock.buffer, locations, options.word_size,
-                options.lut_word_size,
+                db_index.lut_word if db_index is not None
+                else options.lut_word_size,
             )
 
     n_ctx = len(qblock.contexts)
@@ -320,6 +433,19 @@ def setup_batch(
         offsets, positions = csr(lut)
         offsets2, positions2 = csr(lut2) if lut2 is not None else (None,
                                                                    None)
+        q_allowed = None
+        if db_index is not None:
+            # the scan walks the query: the table's offsets mark the
+            # allowed words, and the lut_* fields hold the index's CSR
+            allowed = np.zeros(len(qbuf), bool)
+            allowed[lut.positions] = True
+            q_allowed = torch.from_numpy(allowed).to(dev)
+            offsets, positions = _index_on_device(db, db_index, dev)
+        mask_starts = mask_ends = None
+        if db_mask_ivs is not None and len(db_mask_ivs):
+            ivs = torch.from_numpy(np.ascontiguousarray(
+                db_mask_ivs, np.int64).T.copy()).to(dev)
+            mask_starts, mask_ends = ivs[0], ivs[1]
         seed_dev = SeedingDeviceData(
             resident=resident,
             query_packed=pack_query(q_dev),
@@ -335,6 +461,10 @@ def setup_batch(
             window=options.window_size,
             lut2_offsets=offsets2,
             lut2_positions=positions2,
+            query=q_dev,
+            q_allowed=q_allowed,
+            mask_starts=mask_starts,
+            mask_ends=mask_ends,
         )
     seed_kw = dict(
         word_size=lut.word_size,

@@ -4,7 +4,9 @@ seeding, contiguous and discontiguous templates).
 The port's counterpart of ``gblastn_tpu/engine/seeding.py`` on the main
 path: scan + mini-extension on the device (ops.seeding; a discontiguous
 template's seeds skip the mini-extension, and with two templates both
-seed sets, template 1 first, go through one K1), K1 on every survivor
+seed sets, template 1 first, go through one K1; indexed megablast walks
+the query against the database index instead, and the database's
+soft-mask intervals keep seeds off masked words), K1 on every survivor
 (ops.ungapped), then the device finish (``_dev_replay_pack`` without its
 caps and fallbacks): with two-hit seeding the double-word probe RR where
 the ``rr_zero`` rule allows it, the approximate-ungapped gate G and the
@@ -17,7 +19,11 @@ no counterpart here. K1 has no window and returns exact extensions, so
 there is no phase-0 clamp and no phase-2 escalation either; G has no
 clamp, so every seed resolves and nothing falls back; R has no cap. All
 of these were exact in the JAX package, so removing them changes no
-result. ``_finish_init_hits`` is the host finish, kept as the oracle
+result. Subject coordinates are int64 from the scan to the fetch, so a
+database of any size the card holds is searched as one resident block
+(R reads int32 subject-local coordinates while every subject is shorter
+than ``NARROW_SUBJECT``). ``_finish_init_hits`` is the host finish, kept
+as the oracle
 that the tests and chip_smoke.py hold the device finish to, with its
 host twins ``compute_right_runs``, ``one_hit_diag_filter`` and
 ``two_hit_diag_filter``; no search runs through them. The JAX package's
@@ -86,6 +92,18 @@ class SeedingDeviceData:
     window: int = 0              # two-hit window (0: one-hit)
     lut2_offsets: torch.Tensor | None = None    # the second template's
     lut2_positions: torch.Tensor | None = None  # CSR (coding_and_optimal)
+    query: torch.Tensor | None = None       # uint8[Q] BLASTNA codes (the
+                                            # indexed scan reads them)
+    q_allowed: torch.Tensor | None = None   # bool[Q]: indexed megablast;
+                                            # lut_* then hold the database
+                                            # index's CSR
+    mask_starts: torch.Tensor | None = None  # int64[M] database soft-mask
+    mask_ends: torch.Tensor | None = None    # intervals (sorted)
+
+
+# R reads int32 subject-local coordinates where every subject is
+# shorter than this (its seeds' and extensions' ends then fit), else int64
+NARROW_SUBJECT = (1 << 31) - (1 << 20)
 
 
 def sort_by_score_order(
@@ -354,11 +372,13 @@ def ungapped_inputs(
 ):
     """Scan + mini-extension on the device. Returns (ctx, k1_args,
     n_raw): the survivors' contexts, the argument tuple of
-    ``ungapped_extend_window`` for them, and the raw seed count. With two
-    templates, both tables are scanned and their seeds concatenated,
-    template 1 first, as ``merge_two_template_raw`` merges them in the
-    JAX package (the replay's stable order then breaks ties by index as
-    the host does)."""
+    ``ungapped_extend_window`` for them (int64 subject offsets), and the
+    raw seed count. With two templates, both tables are scanned and their
+    seeds concatenated, template 1 first, as ``merge_two_template_raw``
+    merges them in the JAX package (the replay's stable order then breaks
+    ties by index as the host does). With ``dev.q_allowed`` the raw seeds
+    come from the database index (indexed megablast); ``dev.mask_starts``
+    / ``mask_ends`` keep seeds off the database's soft-masked words."""
     res = dev.resident
     n_ctx = len(x_dropoffs)
     n_scan = max(
@@ -375,7 +395,9 @@ def ungapped_inputs(
         res.subject_w, ctx_off, xdrop, res.starts, res.ends,
         query_len=int(dev.query_packed.shape[0]), scan_step=scan_step,
         lut_word=lut_word, word_size=word_size, n_scan=n_scan,
-        disc_offsets=disc) for offsets, positions, disc in tables]
+        disc_offsets=disc, mask_starts=dev.mask_starts,
+        mask_ends=dev.mask_ends, query=dev.query, q_allowed=dev.q_allowed)
+        for offsets, positions, disc in tables]
     if len(parts) == 1:
         qs, ss, ctx, xd, max_l, max_r, n_raw = parts[0]
     else:
@@ -383,7 +405,7 @@ def ungapped_inputs(
             *(p[:6] for p in parts)))
         n_raw = sum(p[6] for p in parts)
     k1_args = (dev.query_packed, res.subject2, dev.table64,
-               qs.to(torch.int32), ss.to(torch.int32), xd, max_l, max_r)
+               qs.to(torch.int32), ss, xd, max_l, max_r)
     return ctx, k1_args, n_raw
 
 
@@ -450,7 +472,9 @@ def run_seeding_steps(dev: SeedingDeviceData, **scan_kw):
     check_flags(out[1:2])
     check_gate_flags(out[2:3])
     check_key_flag(out[3:4])
-    q_np, s_np, c_np, uq, us, ulen, usc, oid = out[4:].reshape(8, -1)
+    q_np, c_np, uq, ulen, usc, oid, *halves = out[4:].reshape(10, -1)
+    s_np, us = (np.stack(h, 1).view(np.int64)[:, 0]
+                for h in (halves[:2], halves[2:]))
     order = sort_by_score_order(usc, us, ulen, uq)
     return InitHits(q_off=q_np[order], s_off=s_np[order],
                     q_start=uq[order], s_start=us[order],
@@ -461,13 +485,12 @@ def run_seeding_steps(dev: SeedingDeviceData, **scan_kw):
 def gate_inputs(dev: SeedingDeviceData, k1_args, ctx, ung) -> tuple:
     """The arguments of ``approx_gate`` for K1's seeds and outputs
     (``ung``), on their device: the packed query bytes, the resident
-    packed subject
-    and subject bounds, the batch's tables, then int32 q_off, s_off, ctx,
-    oid (by ``searchsorted`` over the subject starts) and K1's q_start,
-    s_start, length and score."""
+    packed subject and subject bounds, the batch's tables, then q_off,
+    s_off (int64), ctx, oid (by ``searchsorted`` over the subject starts)
+    and K1's q_start, s_start (int64), length and score."""
     res = dev.resident
     ss = k1_args[4]
-    oid = torch.searchsorted(res.starts, ss.long(), right=True) - 1
+    oid = torch.searchsorted(res.starts, ss, right=True) - 1
     return (dev.qbytes, res.packed, dev.table256, dev.ctx_tables,
             res.starts, res.ends, k1_args[3], ss, ctx.to(torch.int32),
             oid.to(torch.int32), *ung[:4])
@@ -479,18 +502,21 @@ def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
     score, cutoff) for the seeds of ``g_args`` (``gate_inputs``) and their
     extension ``rows`` (q_start, s_start, length, score) after the gate,
     its ``key_shift``, and the sort's range flag: subject-local
-    coordinates, the keys sorted by ``replay_keys`` with the diagonal mask
-    of the batch's concatenated query length and window, and the batch's
-    bounds (subject count, longest subject, query buffer), one sort where
-    they fit 63 bits; ``key_range_flag`` of the seeds against those
-    bounds (an int32 on the device, nonzero where a field would overwrite
-    the next)."""
+    coordinates (int32 where the longest subject is shorter than
+    ``NARROW_SUBJECT``, else int64, which R's wide kernels read), the keys
+    sorted by ``replay_keys`` with the diagonal mask of the batch's
+    concatenated query length and window, and the batch's bounds (subject
+    count, longest subject, query buffer), one sort where they fit 63
+    bits; ``key_range_flag`` of the seeds against those bounds (an int32
+    on the device, nonzero where a field would overwrite the next)."""
     res = dev.resident
     qs, ss, ctx32, oid32 = g_args[6:10]
     _uq, us, ulen, usc = rows
     base = res.starts[oid32.long()]
-    s_loc = (ss - base).to(torch.int32)
-    end_loc = (us - base + ulen).to(torch.int32)
+    s_loc = ss - base
+    end_loc = us - base + ulen
+    if res.longest < NARROW_SUBJECT:
+        s_loc, end_loc = s_loc.to(torch.int32), end_loc.to(torch.int32)
     bounds = dict(n_sub=res.starts.numel(), s_len=res.longest,
                   q_len=dev.query_packed.numel())
     key, order, shift = replay_keys(
@@ -517,9 +543,10 @@ def run_inputs(dev: SeedingDeviceData, k1_args, g_args,
 def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
     """RR, G, the sort and R over K1's outputs on the seeds' device, for
     the scan keywords ``scan_kw`` (``ungapped_inputs``'); nothing here
-    waits on the card. Returns (rows, head, saved): int32[8, n] rows
-    (q_off, s_off, ctx, q_start, s_start, length, score, oid; the
-    extension after G), an int32[4] head (gated seeds; K1's and G's
+    waits on the card. Returns (rows, head, saved): int32[10, n] rows
+    (q_off, ctx, q_start, length, score, oid, then the low and high
+    words of the int64 s_off and s_start; the extension after G), an
+    int32[4] head (gated seeds; K1's and G's
     FLAG_RANGE if any seed carries it, else 0; the sort's
     ``key_range_flag``) and R's uint8[n] saved. RR runs where
     ``run_inputs`` gives its arguments, and its runs feed G and the
@@ -547,8 +574,17 @@ def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
     head.append(key_flag)
     saved = diag_replay(*r_args, word_size=word_size, window=dev.window,
                         right_run=runs, key_shift=shift)
-    rows = torch.stack([*g_args[6:8], g_args[8], *rows, g_args[9]])
+    uq, us, ulen, usc = rows
+    rows = torch.cat([torch.stack([g_args[6], g_args[8], uq, ulen, usc,
+                                   g_args[9]]),
+                      _halves(g_args[7]), _halves(us)])
     return rows, torch.stack(head), saved
+
+
+def _halves(t: torch.Tensor) -> torch.Tensor:
+    """int32[2, n]: the low and high words of the int64[n] ``t`` (so
+    that the fetch stays int32; ``run_seeding`` joins them)."""
+    return t.contiguous().view(torch.int32).view(-1, 2).t()
 
 
 def _finish_init_hits(
@@ -557,14 +593,21 @@ def _finish_init_hits(
     concat_qlen: int = 1 << 30,   # > 8000 -> exact (hash) diagonals
     approx_ctx: dict | None = None,   # approximate-ungapped gate data
     window_size: int = 0, right_run=None,   # two-hit window and runs
+    scan_range: int = 0,          # -off_diagonal_range (not ported)
 ) -> InitHits:
     """Host finishing: per-context cutoffs, oid mapping, the one- or
     two-hit diagonal replay (scan range 0), final score ordering.
 
     The replay runs in subject-local int32 coordinates (diagonal state
     is keyed per (oid, diag), and shifting s_off and ung_s_start by the
-    same per-subject constant preserves every comparison); the resident
-    tier's size bound keeps every local coordinate below 2^31."""
+    same per-subject constant preserves every comparison). A single
+    subject past 2^31 bases would overflow the local cast (wrapped
+    seeds lose every hit past 2^31), so there the seeds are additionally
+    rebased per (oid, diagonal class): replay state never crosses
+    classes, so any per-class shift preserves the machine exactly. A
+    class that still spans 2^31 raises OverflowError, as does a rebase
+    with ``scan_range`` (its probes cross diagonals); the JAX package's
+    rebase (gblastn_tpu/engine/seeding.py::_finish_init_hits)."""
     cutoff = word_cutoffs[ctx].astype(np.int32)
 
     if len(subject_starts) == 1:
@@ -576,8 +619,47 @@ def _finish_init_hits(
             np.searchsorted(subject_starts, s_np, side="right") - 1
         ).astype(np.int32)
         base = subject_starts[oid].astype(np.int64)
-    s_loc = (s_np.astype(np.int64) - base).astype(np.int32)
-    ug_s_loc = (ug_s.astype(np.int64) - base).astype(np.int32)
+    s_loc64 = np.asarray(s_np).astype(np.int64) - base
+    ug_s_loc64 = np.asarray(ug_s).astype(np.int64) - base
+    i32_safe = (1 << 31) - (1 << 20)
+    rebase_shift = None
+    if len(s_loc64) and int(s_loc64.max()) >= i32_safe:
+        if window_size > 0 and scan_range > 0:
+            raise OverflowError(
+                "-off_diagonal_range probes interact across diagonals "
+                "and cannot be class-rebased; single subjects >= 2^31 "
+                "bases are unsupported with it"
+            )
+        dmask_r = diag_table_mask(concat_qlen, window_size)
+        diag64 = np.asarray(s_np).astype(np.int64) - np.asarray(
+            q_np).astype(np.int64)
+        if dmask_r:
+            diag64 = diag64 & dmask_r
+        order_r = np.lexsort((s_loc64, diag64, oid))
+        o_s2 = oid[order_r]
+        d_s2 = diag64[order_r]
+        s_s2 = s_loc64[order_r]
+        head2 = np.ones(len(order_r), bool)
+        head2[1:] = (o_s2[1:] != o_s2[:-1]) | (d_s2[1:] != d_s2[:-1])
+        gmin = np.minimum.reduceat(s_s2, np.flatnonzero(head2))
+        shift_sorted = np.repeat(gmin, np.diff(np.append(
+            np.flatnonzero(head2), len(order_r))))
+        shift = np.empty(len(order_r), np.int64)
+        shift[order_r] = shift_sorted
+        s_loc64 = s_loc64 - shift
+        ug_s_loc64 = ug_s_loc64 - shift
+        rebase_shift = shift
+        if int(s_loc64.max()) >= i32_safe:
+            raise OverflowError(
+                "a single diagonal class spans >= 2^31 subject bases; "
+                "the replay cannot run in int32"
+            )
+    if window_size > 0 and scan_range > 0:
+        raise NotImplementedError(
+            "gblastn_tpu_torch: two-hit seeding with -off_diagonal_range "
+            "is not ported yet (ROADMAP Queue 1 item 10)")
+    s_loc = s_loc64.astype(np.int32)
+    ug_s_loc = ug_s_loc64.astype(np.int32)
     q32 = q_np.astype(np.int32)
     len32 = ug_len.astype(np.int32)
     score32 = ug_score.astype(np.int32)
@@ -622,7 +704,10 @@ def _finish_init_hits(
                     sme[d] - a_s[d], a_r[d] - a_q[d] + 1
                 )
                 ug_score[d] = a_sc[d]
-                ug_s_loc = (ug_s.astype(np.int64) - base).astype(np.int32)
+                ug_s_loc64b = ug_s.astype(np.int64) - base
+                if rebase_shift is not None:
+                    ug_s_loc64b = ug_s_loc64b - rebase_shift
+                ug_s_loc = ug_s_loc64b.astype(np.int32)
                 len32 = ug_len.astype(np.int32)
                 score32 = ug_score.astype(np.int32)
 

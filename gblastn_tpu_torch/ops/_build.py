@@ -116,7 +116,8 @@ def load():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 8        # query .. max_r
-            + [ctypes.c_int] * 3         # n, Q, S
+            + [ctypes.c_int] * 2         # n, Q
+            + [ctypes.c_longlong]        # S
             + [ctypes.c_void_p] * 5      # five outputs
             + [ctypes.c_void_p]          # stream
         )
@@ -147,8 +148,9 @@ def load():
             [ctypes.c_void_p] * 6        # qbytes, packed, table256,
                                          # ctx_tables, sub_starts, sub_ends
             + [ctypes.c_void_p] * 9      # q_off .. ug_score, right_run
-            + [ctypes.c_int] * 7         # QB, P, n_ctx, n_sub, n, word,
-                                         # concat_end
+            + [ctypes.c_int]             # QB
+            + [ctypes.c_longlong]        # P
+            + [ctypes.c_int] * 5         # n_ctx, n_sub, n, word, concat_end
             + [ctypes.c_void_p] * 5      # five outputs
             + [ctypes.c_void_p]          # stream
         )
@@ -157,7 +159,7 @@ def load():
         fn.argtypes = (
             [ctypes.c_void_p] * 7        # key, order, s_loc, end_loc,
                                          # score, cutoff, right_run
-            + [ctypes.c_int] * 4         # n, word, window, key_shift
+            + [ctypes.c_int] * 5         # n, word, window, key_shift, wide
             + [ctypes.c_void_p] * 2      # saved, stream
         )
         fn = lib.gblastn_right_run               # RR
@@ -165,7 +167,9 @@ def load():
         fn.argtypes = (
             [ctypes.c_void_p] * 6        # query_nib, subject_w, sub_ends,
                                          # q_off, s_off, oid
-            + [ctypes.c_int] * 5         # Q8, S16, n_sub, n, word
+            + [ctypes.c_int]             # Q8
+            + [ctypes.c_longlong]        # S16
+            + [ctypes.c_int] * 3         # n_sub, n, word
             + [ctypes.c_void_p] * 2      # out, stream
         )
         fn = lib.gblastn_empty_launch            # the launch floor

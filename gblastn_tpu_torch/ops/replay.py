@@ -189,7 +189,7 @@ def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
                     right_run=None, return_steps: bool = False):
     """Plain PyTorch version of G (same arguments and results as
     ``approx_gate``). With ``return_steps`` it also returns the byte-steps
-    each seed's walks took (int64[n], left + right): the work count
+    each seed's left and right walk took (int64[2, n]): the work count
     behind G's bound."""
     dev = q_off.device
     i64 = torch.int64
@@ -247,10 +247,13 @@ def approx_gate_ref(qbytes, packed, table256, ctx_tables, sub_starts,
     for out, a in zip(outs, (a_q, a_s, a_len, a_score)):
         out[d] = a[dem]
     flags[d] |= FLAG_DEMOTE
-    outs = tuple(t.to(torch.int32) for t in (*outs, flags))
+    i32 = torch.int32
+    outs = (outs[0].to(i32), outs[1], outs[2].to(i32), outs[3].to(i32),
+            flags.to(i32))
     if return_steps:
-        steps = torch.zeros(q_off.numel(), dtype=i64, device=dev)
-        steps[walk] = l_steps + r_steps
+        steps = torch.zeros(2, q_off.numel(), dtype=i64, device=dev)
+        steps[0, walk] = l_steps
+        steps[1, walk] = r_steps
         return outs + (steps,)
     return outs
 
@@ -285,6 +288,10 @@ def check_key_flag(flag) -> None:
                          "key was packed for")
 
 
+def _bits(v) -> int:
+    return max(int(v), 0).bit_length()
+
+
 def key_layout(n_sub: int, s_len: int, q_len: int, diag_mask: int):
     """(diagonal bits, s bits, q bits) of the one-sort replay key, or None
     where it needs more than 63 bits. Most significant first, the key
@@ -292,14 +299,11 @@ def key_layout(n_sub: int, s_len: int, q_len: int, diag_mask: int):
     with a mask, else ``s - q + q_len - 1``, so it is not negative), the
     subject-local s (< ``s_len``) and, only with a mask, q (< ``q_len``):
     without one, q = s - diagonal follows from the fields before it."""
-    def bits(v):
-        return max(int(v), 0).bit_length()
-
-    b_o, b_s = bits(n_sub - 1), bits(s_len - 1)
+    b_o, b_s = _bits(n_sub - 1), _bits(s_len - 1)
     if diag_mask:
-        b_d, b_q = bits(diag_mask), bits(q_len - 1)
+        b_d, b_q = _bits(diag_mask), _bits(q_len - 1)
     else:
-        b_d, b_q = bits(s_len + q_len - 2), 0
+        b_d, b_q = _bits(s_len + q_len - 2), 0
     return None if b_o + b_d + b_s + b_q > 63 else (b_d, b_s, b_q)
 
 
@@ -318,8 +322,11 @@ def replay_keys(q_off, s_loc, oid, diag_mask: int, *, n_sub: int,
     next; on the card the caller flags it with ``key_range_flag``).
     Where ``key_layout`` fits 63 bits, one stable sort of the packed key
     (``key_shift`` = the bits of s and q); else (or with ``two_sorts``)
-    two stable sorts, the secondary key (s << 32 | q) first, then the
-    primary (oid << 32 | masked diagonal + 2^31; ``key_shift`` 0)."""
+    two stable sorts, the secondary key (s, q) first, then the primary
+    (oid, masked diagonal made non-negative as in the packed key;
+    ``key_shift`` 0), each field as wide as its bound needs (a subject
+    past 2^32 bases included). Bounds whose two-sort keys would pass 63
+    bits raise ValueError."""
     q = q_off.long()
     s = s_loc.long()
     if q.device.type == "cpu" and q.numel():
@@ -329,20 +336,21 @@ def replay_keys(q_off, s_loc, oid, diag_mask: int, *, n_sub: int,
                 raise ValueError(f"replay_keys: {name} outside [0, {bound})")
     layout = (None if two_sorts
               else key_layout(n_sub, s_len, q_len, diag_mask))
+    d = (s - q) & diag_mask if diag_mask else s - q + (q_len - 1)
     if layout is not None:
         b_d, b_s, b_q = layout
-        d = (s - q) & diag_mask if diag_mask else s - q + (q_len - 1)
         key = (((oid.long() << b_d) | d) << b_s) | s
         if b_q:
             key = (key << b_q) | q
         key, order = torch.sort(key, stable=True)
         return key, order, b_s + b_q
-    diag = s - q
-    if diag_mask:
-        diag = diag & diag_mask
-    key = (oid.long() << 32) | (diag + (1 << 31))
-    o1 = torch.sort((s << 32) | q, stable=True).indices
-    key, o2 = torch.sort(key[o1], stable=True)
+    b_o, b_s, b_q = _bits(n_sub - 1), _bits(s_len - 1), _bits(q_len - 1)
+    b_d = _bits(diag_mask) if diag_mask else _bits(s_len + q_len - 2)
+    if b_o + b_d > 63 or b_s + b_q > 63:
+        raise ValueError(f"replay_keys: bounds n_sub {n_sub}, s_len "
+                         f"{s_len}, q_len {q_len} need keys past 63 bits")
+    o1 = torch.sort((s << b_q) | q, stable=True).indices
+    key, o2 = torch.sort(((oid.long() << b_d) | d)[o1], stable=True)
     return key, o1[o2], 0
 
 
@@ -441,13 +449,14 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
     resident 2-bit subject, pad-aligned), table256 int32[256]
     (``nucl_score_table_packed``), ctx_tables int32[3, n_ctx] (word
     cutoff, reduced cutoff, x_drop per context), sub_starts and sub_ends
-    int64[num_seqs], and int32[n] seeds: q_off (buffer), s_off (global),
-    ctx, oid, and K1's q_start, s_start, length, score. ``concat_end`` is
-    one past the query buffer's last real base; ``right_run`` (int32[n],
-    RR's, or None for runs of 0) extends a demoted seed's word end.
-    Returns int32[n]
-    (q_start, s_start, length, score, flags): the rows with the demoted
-    seeds' approximate extension substituted, and FLAG_NEED /
+    int64[num_seqs], and [n] seeds: q_off (buffer), s_off (global), ctx,
+    oid, and K1's q_start, s_start, length, score, each int32 but s_off
+    and s_start, which are int64 (on the CPU any integer type).
+    ``concat_end`` is one past the query buffer's last real base;
+    ``right_run`` (int32[n], RR's, or None for runs of 0) extends a
+    demoted seed's word end. Returns [n] (q_start, s_start, length,
+    score, flags), s_start int64 and the rest int32: the rows with the
+    demoted seeds' approximate extension substituted, and FLAG_NEED /
     FLAG_DEMOTE / FLAG_RANGE. CPU tensors run the plain version; CUDA
     tensors launch the kernel on the current stream without waiting on
     the card. Launches count in ``approx_gate.launches`` (in
@@ -468,17 +477,21 @@ def approx_gate(qbytes, packed, table256, ctx_tables, sub_starts, sub_ends,
         ("ctx_tables", ctx_tables, torch.int32),
         ("sub_starts", sub_starts, torch.int64),
         ("sub_ends", sub_ends, torch.int64),
-    ] + [(f"seed array {k}", t, torch.int32) for k, t in
-         enumerate(seeds + runs)])
+    ] + [(f"seed array {k}", t, torch.int64 if k in (1, 5) else torch.int32)
+         for k, t in enumerate(seeds + runs)])
     if (table256.numel() != 256 or ctx_tables.dim() != 2
             or ctx_tables.shape[0] != 3 or sub_ends.numel()
             != sub_starts.numel()
             or any(t.numel() != n for t in seeds + runs)):
         raise ValueError("approx_gate: table or seed array of the wrong "
                          "shape")
-    if max(qbytes.numel() + 3, packed.numel(), n) >= 2**31:
-        raise ValueError("approx_gate: too long for 32-bit offsets")
-    outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
+    if max(qbytes.numel() + 3, n) >= 2**31:
+        raise ValueError("approx_gate: query or seed count too large for "
+                         "32-bit offsets")
+    q, length, score, flags = torch.empty((4, n), dtype=torch.int32,
+                                          device=dev).unbind(0)
+    outs = (q, torch.empty(n, dtype=torch.int64, device=dev), length, score,
+            flags)
     if n == 0:
         return outs
     fn, _r, _rr, raw_stream, capturing = _lib_fns or _bind()
@@ -506,10 +519,11 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     replay order.
 
     key, order and key_shift from ``replay_keys`` (a segment is a run of
-    equal ``key >> key_shift``); int32[n] per seed (in
-    the original order): s_loc (subject-local seed start), end_loc (the
-    subject-local end of its ungapped extension, after G), score (after
-    G) and cutoff; for two-hit, ``right_run`` (RR's, or None for runs of
+    equal ``key >> key_shift``); [n] per seed (in the original order):
+    s_loc (subject-local seed start) and end_loc (the subject-local end of
+    its ungapped extension, after G), both int32 or both int64 (the wide
+    kernels: a subject past 2^31 bases), and int32 score (after G) and
+    cutoff; for two-hit, ``right_run`` (int32, RR's, or None for runs of
     0; one-hit ignores it). Returns uint8[n] saved, in the original
     order. CPU tensors run the plain version; CUDA tensors launch the
     kernel (a segment a thread, at its head; long skips searched for) on
@@ -524,9 +538,11 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     if dev.type != "cuda":
         raise ValueError(f"diag_replay: no kernel for {dev}")
     n = key.numel()
+    wide = s_loc.dtype == torch.int64
+    coord = torch.int64 if wide else torch.int32
     _check_args("diag_replay", dev, [
         ("key", key, torch.int64), ("order", order, torch.int64),
-        ("s_loc", s_loc, torch.int32), ("end_loc", end_loc, torch.int32),
+        ("s_loc", s_loc, coord), ("end_loc", end_loc, coord),
         ("score", score, torch.int32), ("cutoff", cutoff, torch.int32)]
         + [("right_run", t, torch.int32) for t in runs])
     if any(t.numel() != n for t in tensors + runs) or n >= 2**31:
@@ -541,7 +557,7 @@ def diag_replay(key, order, s_loc, end_loc, score, cutoff, *,
     _g, fn, _rr, raw_stream, capturing = _lib_fns or _bind()
     args = (*(t.data_ptr() for t in tensors),
             right_run.data_ptr() if runs else None, n, word_size, window,
-            key_shift, saved.data_ptr(), raw_stream(dev.index))
+            key_shift, int(wide), saved.data_ptr(), raw_stream(dev.index))
     _launch(fn, dev.index, args, "diag_replay")
     if capturing():
         diag_replay.captured += 1
@@ -556,7 +572,7 @@ diag_replay.captured = 0
 
 _RR_SPECS = (("query_nib", torch.int64), ("subject_w", torch.int64),
              ("sub_ends", torch.int64), ("q_off", torch.int32),
-             ("s_off", torch.int32), ("oid", torch.int32))
+             ("s_off", torch.int64), ("oid", torch.int32))
 
 
 def right_run(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
@@ -566,16 +582,17 @@ def right_run(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
     query_nib int64[Q/8] (``ops.seeding.pack_query_nibbles``: eight
     4na-mask nibbles a word), subject_w int64[S/16] (the resident
     ``subject_w``: sixteen 2-bit codes a word), sub_ends int64[num_seqs]
-    (each subject's end), and int32[n] seeds: q_off (buffer), s_off
-    (global) and oid (the owning subject). Returns int32[n] runs, each
+    (each subject's end), and [n] seeds: int32 q_off (buffer), int64 s_off
+    (global; on the CPU any integer type) and int32 oid (the owning
+    subject). Returns int32[n] runs, each
     at most ``word_size``. CPU tensors run the plain version; CUDA
     tensors launch the kernel (a thread a seed, sixteen bases a step) on
     the current stream without waiting on the card. Launches count in
     ``right_run.launches`` (in ``.captured`` while a graph captures).
 
     The checks of a CUDA call (one device, dtypes, contiguity, lengths,
-    32-bit offsets) read each tensor's attributes once: a call's host
-    work is several times the launch."""
+    32-bit query offsets) read each tensor's attributes once: a call's
+    host work is several times the launch."""
     tensors = (query_nib, subject_w, sub_ends, q_off, s_off, oid)
     if not q_off.is_cuda:
         if all(t.device.type == "cpu" for t in tensors):
@@ -590,9 +607,10 @@ def right_run(query_nib, subject_w, sub_ends, q_off, s_off, oid, *,
     if s_off.numel() != n or oid.numel() != n:
         raise ValueError("right_run: seed arrays of different lengths")
     q8, s16 = query_nib.numel(), subject_w.numel()
-    if not 0 <= word_size <= 64 or max(8 * q8, 16 * s16, n) >= 2**31:
-        raise ValueError("right_run: word size outside [0, 64], or too "
-                         "long for 32-bit offsets")
+    if not 0 <= word_size <= 64 or max(8 * q8, n) >= 2**31:
+        raise ValueError("right_run: word size outside [0, 64], or a "
+                         "query or seed count too large for 32-bit "
+                         "offsets")
     run = torch.empty(n, dtype=torch.int32, device=q_off.device)
     if n == 0:
         return run

@@ -12,8 +12,10 @@ seed, a left walk over q_off-1, q_off-2, ... and a right walk over
 q_off, q_off+1, ...; steps past the seed's budget max_l / max_r score
 NEG_BIG; a walk stops at the first step whose running sum falls below
 max(best so far, 0) - x, and best moves only on a strictly greater sum.
-Returns int32 (q_start, s_start, length, score, flags) with flags bit 1 /
-bit 2 set when the left / right walk ended at its budget.
+Returns (q_start, s_start, length, score, flags), s_start int64 and the
+rest int32, with flags bit 1 / bit 2 set when the left / right walk
+ended at its budget. Subject offsets are int64 throughout (a resident
+database past 2^31 bases); query offsets, budgets and scores are int32.
 
 Ranges: every seed needs max_l, max_r >= 0, q_off - max_l >= 0, s_off -
 max_l >= 0, q_off + max_r <= Q and s_off + max_r <= S; the plain path
@@ -185,8 +187,9 @@ def ungapped_extend_window_ref(query_packed, subject2, table64, q_off,
     r_best, r_pos, r_stop = _walk_ref(query_packed, subject2, q0, s0,
                                       False, mr, x, table)
     flags = 2 * (l_stop > ml).long() + 4 * (r_stop > mr).long()
-    outs = (q0 - l_pos, s0 - l_pos, l_pos + r_pos, l_best + r_best, flags)
-    outs = tuple(o.to(torch.int32) for o in outs)
+    i32 = torch.int32
+    outs = ((q0 - l_pos).to(i32), s0 - l_pos, (l_pos + r_pos).to(i32),
+            (l_best + r_best).to(i32), flags.to(i32))
     if return_steps:
         return outs + (torch.stack([l_stop, r_stop]),)
     return outs
@@ -240,17 +243,18 @@ def _check_kernel_args(query_packed, subject2, table64, seeds):
             raise ValueError(f"{name} must be contiguous")
     if table64.numel() < 72:
         raise ValueError("table64 must hold 72 entries (make_table64)")
-    if max(query_packed.numel(), subject2.numel()) >= 2**31:
-        raise ValueError("query or subject too long for 32-bit offsets")
+    if query_packed.numel() >= 2**31:
+        raise ValueError("query too long for 32-bit offsets")
     n = seeds[0].numel()
     if n >= 2**31:
         raise ValueError("too many seeds for one launch")
-    for t in seeds:
-        if (t.device != dev or t.dtype != torch.int32 or t.dim() != 1
+    for k, t in enumerate(seeds):
+        dt = torch.int64 if k == 1 else torch.int32
+        if (t.device != dev or t.dtype != dt or t.dim() != 1
                 or t.numel() != n or not t.is_contiguous()):
             raise ValueError(
-                f"seed arrays must be contiguous 1-D int32 of length {n} "
-                f"on {dev}"
+                f"seed arrays must be contiguous 1-D of length {n} on "
+                f"{dev}, s_off int64 and the rest int32"
             )
 
 
@@ -275,8 +279,10 @@ def ungapped_extend_window(query_packed, subject2, table64, q_off, s_off,
     """K1: exact two-way X-drop ungapped extension of every seed.
 
     query_packed uint8[Q] (``pack_query``), subject2 int8[S] 2-bit codes,
-    table64 int32[72] (``make_table64``), and int32[n] q_off, s_off,
-    x_drop, max_l, max_r. CPU tensors run the plain version (after
+    table64 int32[72] (``make_table64``), and [n] q_off, s_off, x_drop,
+    max_l, max_r: s_off int64 (any integer type on the CPU), the rest
+    int32. Returns int32 q_start, int64 s_start and int32 length, score
+    and flags. CPU tensors run the plain version (after
     ``check_ranges``). CUDA tensors launch the kernel on the current
     stream without waiting on the card, so a CUDA graph can capture the
     call; a seed out of range comes back with FLAG_RANGE, which
@@ -296,8 +302,11 @@ def ungapped_extend_window(query_packed, subject2, table64, q_off, s_off,
     if dev.type != "cuda":
         raise ValueError(f"ungapped_extend_window: no kernel for {dev}")
     n = q_off.numel()
-    # the five outputs as rows of one allocation (one allocator call)
-    outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
+    # the int32 outputs as rows of one allocation, and s_start
+    q, length, score, flags = torch.empty((4, n), dtype=torch.int32,
+                                          device=dev).unbind(0)
+    outs = (q, torch.empty(n, dtype=torch.int64, device=dev), length, score,
+            flags)
     if n == 0:
         return outs
     fn, raw_stream, capturing = _lib_fns or _bind()

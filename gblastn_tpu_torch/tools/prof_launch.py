@@ -29,6 +29,9 @@ kernel from a CUDA graph of 100 (``tools.timing.graph_ms``):
     ``csrc/approx_gate.cu`` and ``csrc/diag_replay.cu``, each built alone
     and launched through its C entry; R on the one-sort order), held
     bit-equal too and timed in the same turns. G and R come first;
+    a parent whose kernels take int32 subject offsets (the C entries
+    before they widened to int64, ``parent_wide``) gets int32 copies of
+    those arrays, made before the turns;
   * RR at config 1w (the one path that probes double words;
     ``batch_run_case``) and on its random sets at words 11 and 28
     (``random_run_cases``), held bit-equal to its plain version, one
@@ -148,7 +151,9 @@ def finish_times(cases, label, parent=None):
     bit-equal to its plain version: one launch alone, this tree's wrapper
     and, with ``parent`` (``parent_finish``' libraries), the parent's
     kernels through their C entries, in the turns parent, this, this,
-    parent; their wrapper calls; and ``replay_keys``' one-sort and
+    parent; where a case's coordinates are int32, R's wide kernels on
+    int64 copies of them ("wide", after "this" in the same turns);
+    their wrapper calls; and ``replay_keys``' one-sort and
     two-sort forms (a call, CUDA events). Prints a line a case and
     returns (records, all bit-equal)."""
     from gblastn_tpu_torch.ops import replay as rp
@@ -170,10 +175,19 @@ def finish_times(cases, label, parent=None):
             r_outs["this"][:] = [rp.diag_replay(*r_args, **r_kw)]
         if parent is not None:
             g_launch["parent"], g_outs["parent"] = gate_c_launch(
-                parent["g"], g_args, g_kw)
+                parent["g"], g_args, g_kw, parent["wide"]["g"])
             r_launch["parent"], r_outs["parent"] = replay_c_launch(
-                parent["r"], r_args, r_kw)
+                parent["r"], r_args, r_kw, parent["wide"]["r"])
         g_launch["this"], r_launch["this"] = g_this, r_this
+        if r_args[2].dtype == torch.int32:
+            # R's wide kernels on int64 copies of the coordinates
+            wide_args = (*r_args[:2], r_args[2].long(), r_args[3].long(),
+                         *r_args[4:])
+            r_outs["wide"] = []
+
+            def r_wide():
+                r_outs["wide"][:] = [rp.diag_replay(*wide_args, **r_kw)]
+            r_launch["wide"] = r_wide
         g_ms = turns(g_launch, (rp.approx_gate,))
         r_ms = turns(r_launch, (rp.diag_replay,))
         torch.cuda.synchronize()
@@ -203,11 +217,13 @@ def finish_times(cases, label, parent=None):
     return rec, ok
 
 
-def rr_times(cases, label, parent=None, parent_wrapper=None):
+def rr_times(cases, label, parent=None, parent_wrapper=None,
+             parent_wide=True):
     """RR at each of ``cases`` ({name: (args, kw)} of ``right_run``), held
     bit-equal to its plain version: one launch alone (a CUDA graph of
     100) of this tree's wrapper and, with ``parent`` (a library from
-    ``_build.build_one``), of the parent's kernel through its C entry, in
+    ``_build.build_one``; its entry int64 where ``parent_wide``), of the
+    parent's kernel through its C entry, in
     the turns parent, this, this, parent; an empty kernel's launch at
     the same grid (the launch floor); a wrapper call (CUDA events) and,
     with ``parent_wrapper`` (``parent_right_run``), the parent's wrapper
@@ -225,7 +241,8 @@ def rr_times(cases, label, parent=None, parent_wrapper=None):
             outs["this"][:] = [rp.right_run(*a, **kw)]
         launches = {}
         if parent is not None:
-            launches["parent"], outs["parent"] = rr_c_launch(parent, a, kw)
+            launches["parent"], outs["parent"] = rr_c_launch(
+                parent, a, kw, parent_wide)
         launches["this"] = this
         one = turns(launches, (rp.right_run,))
         torch.cuda.synchronize()
@@ -269,44 +286,71 @@ def turns(launches, counted):
     return ms
 
 
-_GATE_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-                  + [ctypes.c_void_p] * 6)
+# the marker of each C entry that takes int64 subject offsets (this
+# tree's), in its source's text
+_WIDE_MARKS = {"k1": "long long S,", "g": "long long P,",
+               "r": "int wide,", "rr": "long long S16,"}
 
 
-def gate_c_launch(lib, args, kw):
+def parent_wide(src: dict[str, Path]) -> dict[str, bool]:
+    """For each of ``parent_sources``' kernels, whether its C entry takes
+    int64 subject offsets, as this tree's do (else the int32 entries
+    before them): {"k1": bool, ...}, from the source's text."""
+    return {k: _WIDE_MARKS[k] in Path(src[k]).read_text()
+            for k in _WIDE_MARKS}
+
+
+def _narrow(t):
+    return t.to(torch.int32) if t.dtype == torch.int64 else t
+
+
+def gate_c_launch(lib, args, kw, wide=True):
     """fn() launching G through the C entry of ``lib`` (a library from
     ``_build.build_one``: the parent's kernel or a variant of this
-    tree's; the entry's arguments are the wrapper's) on the current
-    stream, and its five outputs."""
+    tree's; the entry's arguments are the wrapper's, with int32 copies of
+    s_off and s_start and an int P where ``wide`` is false) on the
+    current stream, and its five outputs."""
     fn = lib.gblastn_approx_gate
     fn.restype = ctypes.c_int
-    fn.argtypes = _GATE_ARGTYPES
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int]
+                   + [ctypes.c_longlong if wide else ctypes.c_int]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
+    if not wide:
+        args = tuple(_narrow(t) if k in (7, 11) else t
+                     for k, t in enumerate(args))
     qbytes, packed, _tab, ctx_tables, sub_starts = args[:5]
     n = args[6].numel()
     dev = qbytes.device
-    outs = torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0)
+    outs = list(torch.empty((5, n), dtype=torch.int32, device=dev).unbind(0))
+    if wide:
+        outs[1] = torch.empty(n, dtype=torch.int64, device=dev)
     runs = kw.get("right_run")
     ptrs = (*(t.data_ptr() for t in args),
             runs.data_ptr() if runs is not None else None, qbytes.numel(),
             packed.numel(), ctx_tables.shape[1], sub_starts.numel(), n,
             kw["word_size"], kw["concat_end"], *(o.data_ptr() for o in outs))
 
-    def launch():
+    def launch(_keep=args):    # keeps the int32 copies alive
         rc = fn(*ptrs, _raw_stream(dev))
         if rc != 0:
             raise RuntimeError(f"G launch failed: CUDA error {rc}")
     return launch, outs
 
 
-def replay_c_launch(lib, args, kw):
+def replay_c_launch(lib, args, kw, wide=True):
     """fn() launching R through the C entry of ``lib`` (the parent's
     kernel, a library from ``_build.build_one``; its entry takes
-    key_shift, as this tree's does) on the current stream, and its saved
-    output (in a list)."""
+    key_shift, as this tree's does, and where ``wide`` the coordinates'
+    width; an older entry int32 coordinates alone) on the current stream,
+    and its saved output (in a list)."""
     fn = lib.gblastn_diag_replay
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * (5 if wide
+                                                            else 4)
                    + [ctypes.c_void_p] * 2)
+    if not wide:
+        args = tuple(_narrow(t) if k in (2, 3) else t
+                     for k, t in enumerate(args))
     n = args[0].numel()
     dev = args[0].device
     window = kw.get("window", 0)
@@ -314,9 +358,10 @@ def replay_c_launch(lib, args, kw):
     saved = torch.zeros(n, dtype=torch.uint8, device=dev)
     ptrs = (*(t.data_ptr() for t in args),
             runs.data_ptr() if runs is not None else None,
-            n, kw["word_size"], window, kw["key_shift"])
+            n, kw["word_size"], window, kw["key_shift"],
+            *((int(args[2].dtype == torch.int64),) if wide else ()))
 
-    def launch():
+    def launch(_keep=args):    # keeps the int32 copies alive
         saved.zero_()
         rc = fn(*ptrs, saved.data_ptr(), _raw_stream(dev))
         if rc != 0:
@@ -324,15 +369,19 @@ def replay_c_launch(lib, args, kw):
     return launch, [saved]
 
 
-def rr_c_launch(lib, args, kw):
+def rr_c_launch(lib, args, kw, wide=True):
     """fn() launching RR through the C entry of ``lib`` (the parent's
     kernel, a library from ``_build.build_one``; its entry's arguments
-    are the wrapper's) on the current stream, and its runs (in a
+    are the wrapper's, with an int32 copy of s_off and an int S16 where
+    ``wide`` is false) on the current stream, and its runs (in a
     list)."""
     fn = lib.gblastn_right_run
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_longlong if wide else ctypes.c_int]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    if not wide:
+        args = tuple(_narrow(t) if k == 4 else t for k, t in enumerate(args))
     query_nib, subject_w, sub_ends, q_off = args[:4]
     n = q_off.numel()
     dev = q_off.device
@@ -341,7 +390,7 @@ def rr_c_launch(lib, args, kw):
             subject_w.numel(), sub_ends.numel(), n, kw["word_size"],
             run.data_ptr())
 
-    def launch():
+    def launch(_keep=args):    # keeps the int32 copies alive
         rc = fn(*ptrs, _raw_stream(dev))
         if rc != 0:
             raise RuntimeError(f"RR launch failed: CUDA error {rc}")
@@ -366,10 +415,11 @@ def parent_right_run(parent: Path):
 def parent_finish(src):
     """The parent's G, R and RR (``parent_sources``' "g", "r" and
     "rr"), each built alone: {"g": library, "r": library, "rr":
-    library}."""
+    library, "wide": ``parent_wide(src)``}."""
     return {"g": _build.build_one(src["g"], "approx_gate_parent"),
             "r": _build.build_one(src["r"], "diag_replay_parent"),
-            "rr": _build.build_one(src["rr"], "right_run_parent")}
+            "rr": _build.build_one(src["rr"], "right_run_parent"),
+            "wide": parent_wide(src)}
 
 
 def longest_job(jobs, q_len, s_len, rows):
@@ -397,22 +447,27 @@ def parent_sources(parent: Path) -> dict[str, Path]:
     return out
 
 
-def k1_parent_launch(lib, args):
+def k1_parent_launch(lib, args, wide=True):
     """fn() launching the parent commit's K1 (a library from
     ``_build.build_one``; its C entry takes the query's and the subject's
-    lengths, as this tree's does) on the current stream, and its five
-    outputs."""
+    lengths, as this tree's does, and where ``wide`` is false int32
+    subject offsets, given an int32 copy of s_off) on the current
+    stream, and its five outputs."""
     fn = lib.gblastn_ungapped_xdrop
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong if wide else ctypes.c_int]
                    + [ctypes.c_void_p] * 6)
+    if not wide:
+        args = tuple(_narrow(t) if k == 4 else t for k, t in enumerate(args))
     dev = args[0].device
     n = args[3].numel()
-    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(5)]
+    outs = [torch.empty(n, dtype=torch.int64 if k == 1 and wide
+                        else torch.int32, device=dev) for k in range(5)]
     ptrs = [a.data_ptr() for a in args]
     optrs = [o.data_ptr() for o in outs]
 
-    def launch():
+    def launch(_keep=args):    # keeps the int32 copies alive
         rc = fn(*ptrs, n, args[0].numel(), args[1].numel(), *optrs,
                 _raw_stream(dev))
         if rc != 0:
@@ -420,16 +475,17 @@ def k1_parent_launch(lib, args):
     return launch, outs
 
 
-def k1_turns(args, parent=None):
+def k1_turns(args, parent=None, wide=True):
     """One launch of K1 alone (ms, from a CUDA graph of 100) at ``args``:
-    this tree's wrapper ("this") and, when ``parent`` is its library, the
-    parent's kernel, in the turns parent, this, this, parent. Returns (ms
-    lists by name, bit-equal: every launch's outputs equal the plain
-    version's)."""
+    this tree's wrapper ("this") and, when ``parent`` is its library (its
+    entry int64 where ``wide``), the parent's kernel, in the turns
+    parent, this, this, parent. Returns (ms lists by name, bit-equal:
+    every launch's outputs equal the plain version's)."""
     want = ung.ungapped_extend_window_ref(*args)
     outs, launches = {}, {}
     if parent is not None:
-        launches["parent"], outs["parent"] = k1_parent_launch(parent, args)
+        launches["parent"], outs["parent"] = k1_parent_launch(parent, args,
+                                                              wide)
     last = outs.setdefault("this", [])
 
     def launch():
@@ -501,7 +557,10 @@ def main(argv=None) -> int:
                      for _label, a, kw in random_run_cases(dev)})
     rr, same = rr_times(
         rr_cases, label, pf["rr"] if pf else None,
-        parent_right_run(args.parent) if args.parent else None)
+        # an older wrapper would hand this tree's kernel int32 offsets
+        parent_right_run(args.parent)
+        if args.parent and pf["wide"]["rr"] else None,
+        pf["wide"]["rr"] if pf else True)
     rec["rr"] = rr
     ok &= same
     q, s2, mat, kw_pg, sets = prof_gapped.workload(dev, n_sets=1)
@@ -513,14 +572,16 @@ def main(argv=None) -> int:
                 "dead": ((q, s2, mat, sets["dead"][0]), kw_pg)}
 
     parent = parent_k2 = None
+    k1_wide = True
     if args.parent is not None:
         src = parent_sources(args.parent)
         parent = _build.build_one(src["k1"], "ungapped_xdrop_parent")
         parent_k2 = _build.build_one(src["k2"], "gapped_band_parent")
+        k1_wide = parent_wide(src)["k1"]
 
     for name, a in (("config1", k1_c1), ("config2", k1_c2)):
         n = a[3].numel()
-        one, same = k1_turns(a, parent)
+        one, same = k1_turns(a, parent, k1_wide)
         ok &= same
         call = call_ms(lambda: ung.ungapped_extend_window(*a), 20, "cuda")
         rec[f"k1_{name}"] = {"seeds": n, "ms_graph": one, "ms_call": call,

@@ -152,7 +152,9 @@ def random_gate_case(device, n=65536, seed=4242):
             t(db.packed_padded(), torch.uint8),
             t(nucl_score_table_packed(1, -2)), t(tabs),
             t(starts, torch.int64), t(ends, torch.int64),
-            *(t(a) for a in (q, s, ctx, oid, ug_q, ug_s, ug_len, ug_score)))
+            *(t(a, torch.int64 if k in (1, 5) else torch.int32)
+              for k, a in enumerate((q, s, ctx, oid, ug_q, ug_s, ug_len,
+                                     ug_score))))
     return args, dict(word_size=11, concat_end=Q - 1)
 
 
@@ -296,7 +298,7 @@ def random_run_cases(device, n=65536, seed=909):
         args = (pack_query_nibbles(t(query, torch.uint8)),
                 pack_subject_words(t(db.packed_padded(), torch.uint8)),
                 t(starts + np.asarray(db.lengths, np.int64), torch.int64),
-                t(q), t(s), t(oid))
+                t(q), t(s, torch.int64), t(oid))
         out.append((f"random seeds, word {word}, runs 0..{word}, N/R/Y, "
                     "sentinels, subject and query ends", args,
                     dict(word_size=word)))
@@ -369,3 +371,94 @@ def random_two_hit_cases(device, n=262144, seed=4040, window=40):
                     dict(word_size=word, window=window, right_run=t(run),
                          key_shift=shift)))
     return out
+
+
+def past_2g_cases(dev, n_seg=48, seg=1200):
+    """K1, G, RR and R's inputs on a single random subject of 2^31 + 2^22
+    bases made on ``dev`` from a seeded torch.Generator (packed bytes,
+    codes and 16-base words, as the resident form holds them): a query
+    of ``n_seg`` copies of its stretches from just before 2^31 to 2^31 +
+    2^21 (2% substitutions, sentinels between them), and seeds along
+    each copy's diagonal plus random ones past 2^31. Megablast's word
+    28; each kernel's inputs come from the plain versions of the kernels
+    before it, so K1's walks cross 2^31, G's and RR's read the subject
+    there, and R orders and replays subject-local s past 2^31 (on int64
+    coordinates: two sorts, as the packed key needs 64 bits). Returns
+    {"k1", "g", "rr", "r", "r_two_hit"}: (args, kw) of
+    ``ungapped_extend_window``, ``approx_gate``, ``right_run`` and
+    ``diag_replay`` (window 0 and 40)."""
+    from gblastn_tpu_torch.engine.search import device_matrix16
+    from gblastn_tpu_torch.ops.replay import (
+        approx_gate_ref,
+        right_run_ref,
+    )
+    from gblastn_tpu_torch.ops.seeding import unpack_2na
+    from gblastn_tpu_torch.ops.ungapped import (
+        make_table64,
+        pack_query,
+        ungapped_extend_window_ref,
+    )
+
+    S = (1 << 31) + (1 << 22)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2031)
+    packed = torch.randint(0, 256, (S // 4,), generator=g, device=dev,
+                           dtype=torch.uint8)
+    subject2 = unpack_2na(packed)
+    rng = np.random.default_rng(2031)
+    where = (1 << 31) - seg // 2 + np.arange(n_seg) * ((1 << 21) // n_seg)
+    parts, q_at = [np.array([15], np.uint8)], []
+    for s0 in where:
+        codes = subject2[int(s0): int(s0) + seg].cpu().numpy().astype(
+            np.uint8)
+        sub = rng.random(seg) < 0.02
+        codes[sub] = (codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        q_at.append(sum(len(p) for p in parts))
+        parts += [codes, np.array([15], np.uint8)]
+    query = np.concatenate(parts)
+    query = np.concatenate([query, np.full(-len(query) % 8, 15, np.uint8)])
+    qs, ss = [], []
+    for q0, s0 in zip(q_at, where):
+        d = np.arange(0, seg - 40, 23)
+        qs.append(q0 + d)
+        ss.append(s0 + d)
+    n_rand = 4096
+    qs.append(rng.integers(1, len(query) - 40, n_rand))
+    ss.append(rng.integers((1 << 31) - (1 << 20), S - 40, n_rand))
+    q_np = np.concatenate(qs)
+    s_np = np.concatenate(ss).astype(np.int64)
+    Q, n = len(query), len(q_np)
+    i32 = torch.int32
+    q_t = torch.from_numpy(query).to(dev)
+    q_off = torch.from_numpy(q_np.astype(np.int32)).to(dev)
+    s_off = torch.from_numpy(s_np).to(dev)
+    zeros = torch.zeros(n, dtype=i32, device=dev)
+    k1_args = (pack_query(q_t), subject2,
+               torch.from_numpy(make_table64(device_matrix16(1, -2))).to(dev),
+               q_off, s_off, torch.full((n,), 20, dtype=i32, device=dev),
+               torch.from_numpy(np.minimum(q_np, s_np).astype(np.int32)
+                                ).to(dev),
+               torch.from_numpy(np.minimum(Q - q_np, S - s_np).astype(
+                   np.int32)).to(dev))
+    ung = ungapped_extend_window_ref(*k1_args)
+    ends = torch.full((1,), S, dtype=torch.int64, device=dev)
+    rr_args = (pack_query_nibbles(q_t), pack_subject_words(packed), ends,
+               q_off, s_off, zeros)
+    rr_kw = dict(word_size=28)
+    runs = right_run_ref(*rr_args, **rr_kw)
+    g_args = (query_bytes(q_t), packed,
+              torch.from_numpy(nucl_score_table_packed(1, -2).astype(
+                  np.int32)).to(dev),
+              torch.tensor([[22], [30], [16]], dtype=i32, device=dev),
+              torch.zeros(1, dtype=torch.int64, device=dev), ends, q_off,
+              s_off, zeros, zeros, *ung[:4])
+    g_kw = dict(word_size=28, concat_end=Q - 1, right_run=runs)
+    gated = approx_gate_ref(*g_args, **g_kw)
+    key, order, shift = replay_keys(q_off, s_off, zeros, 0, n_sub=1,
+                                    s_len=S, q_len=Q)
+    r_args = (key, order, s_off, gated[1] + gated[2], gated[3],
+              torch.full((n,), 22, dtype=i32, device=dev))
+    r_kw = dict(word_size=28, right_run=runs, key_shift=shift)
+    return {"k1": (k1_args, {}), "g": (g_args, g_kw), "rr": (rr_args, rr_kw),
+            "r": (r_args, dict(r_kw, window=0)),
+            "r_two_hit": (r_args, dict(r_kw, window=40))}

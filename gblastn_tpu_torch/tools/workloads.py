@@ -150,3 +150,96 @@ def plant_repeats(rng, genome, n_elements=1000, elem_len=300, share=0.10,
         copies.append((st, e, minus))
     return ([_BASES[e].tobytes().decode() for e in elems],
             _BASES[g].tobytes().decode(), copies)
+
+
+GIANT_BASES = 3_200_000_000     # bench.py's bench_config4
+GENOME_QUERIES = 100            # reads planted in giant and chroms
+# GRCh38's primary chromosomes (NCBI RefSeq assembly GCF_000001405.40):
+# 3,088,269,832 bases; chr13 straddles 2^31 and chr14-chrY lie past it
+GRCH38_CHROMS = (
+    ("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
+    ("chr4", 190_214_555), ("chr5", 181_538_259), ("chr6", 170_805_979),
+    ("chr7", 159_345_973), ("chr8", 145_138_636), ("chr9", 138_394_717),
+    ("chr10", 133_797_422), ("chr11", 135_086_622),
+    ("chr12", 133_275_309), ("chr13", 114_364_328),
+    ("chr14", 107_043_718), ("chr15", 101_991_189),
+    ("chr16", 90_338_345), ("chr17", 83_257_441), ("chr18", 80_373_285),
+    ("chr19", 58_617_616), ("chr20", 64_444_167), ("chr21", 46_709_983),
+    ("chr22", 50_818_468), ("chrX", 156_040_895), ("chrY", 57_227_415),
+)
+PAST_2G_FROM = "chr14"          # the first chromosome past 2^31
+
+
+def _planted_read(rng, packed, start, qlen, rate=0.02):
+    """The ``qlen`` codes of the packed subject from base ``start`` with
+    ``rate`` of them redrawn to another base, as bench_config4 draws them
+    (one uniform a base, then one integer a substituted base); a read
+    string."""
+    from gblastn_tpu_torch.io.encoding import unpack_2na
+
+    lo, hi = start // 4, (start + qlen) // 4 + 2
+    codes = unpack_2na(packed[lo:hi], (hi - lo) * 4)[
+        start % 4: start % 4 + qlen].copy()
+    for p in np.flatnonzero(rng.random(qlen) < rate):
+        codes[p] = (codes[p] + 1 + int(rng.integers(0, 3))) % 4
+    return "".join("ACGT"[c] for c in codes)
+
+
+def giant_workload(bases=GIANT_BASES, num=GENOME_QUERIES, qlen=QUERY_LEN):
+    """bench.py's bench_config4 (the same draws from SEED + 4): one
+    subject of ``bases`` random packed bytes' bases (a 3.2 Gbase genome by
+    default, built with no string), and ``num`` reads of ``qlen`` bases
+    planted at uniform places with 2% substitutions. Returns (db,
+    (name, sequence) pairs, plant starts)."""
+    from gblastn_tpu_torch.io.seqdb import SequenceDB
+
+    rng = np.random.default_rng(SEED + 4)
+    packed = rng.integers(0, 256, (bases + 3) // 4, dtype=np.uint8)
+    bases = len(packed) * 4
+    db = SequenceDB(packed=packed, starts=np.zeros(1, np.int64),
+                    lengths=np.array([bases], np.int64), ids=["giant1"],
+                    title="giant_synth")
+    pairs, starts = [], []
+    for i in range(num):
+        start = int(rng.integers(0, bases - qlen - 4))
+        pairs.append((f"g{i}", _planted_read(rng, packed, start, qlen)))
+        starts.append(start)
+    return db, pairs, starts
+
+
+def chroms_workload(chroms=GRCH38_CHROMS, num=GENOME_QUERIES,
+                    qlen=QUERY_LEN, far=35, seed=SEED + 11):
+    """GRCh38's 24 primary chromosomes as random subjects of their
+    lengths (``chroms``: (name, length) pairs), built from random packed
+    bytes with the pad between subjects that ``SequenceDB.from_records``
+    leaves (zero codes, at least one base, to a multiple of its PAD), and
+    ``num`` reads of ``qlen`` bases with 2% substitutions: ``far`` of them
+    planted on the chromosomes from PAST_2G_FROM on (past 2^31 at full
+    size), the rest on those before, each chromosome drawn by its length
+    and a place uniformly in it. Returns (db, (name, sequence) pairs,
+    plant starts in database coordinates, each read's chromosome)."""
+    from gblastn_tpu_torch.io.seqdb import PAD, SequenceDB
+
+    rng = np.random.default_rng(seed)
+    lengths = np.array([n for _c, n in chroms], np.int64)
+    padded = lengths + np.where(lengths % PAD, -lengths % PAD, PAD)
+    starts = np.concatenate([[0], np.cumsum(padded)[:-1]]).astype(np.int64)
+    packed = rng.integers(0, 256, int(padded.sum()) // 4, dtype=np.uint8)
+    for st, n, p in zip(starts, lengths, padded):
+        end = int(st + n)                 # the pad's bases get code 0
+        if end % 4:
+            packed[end // 4] &= (0xFF << (8 - 2 * (end % 4))) & 0xFF
+        packed[-(-end // 4): int(st + p) // 4] = 0
+    db = SequenceDB(packed=packed, starts=starts, lengths=lengths,
+                    ids=[c for c, _n in chroms], title="grch38_synth")
+    split = [c for c, _n in chroms].index(PAST_2G_FROM)
+    groups = (np.arange(split), np.arange(split, len(chroms)))
+    pairs, plants, owner = [], [], []
+    for i in range(num):
+        pick = groups[1] if i < far else groups[0]
+        k = int(rng.choice(pick, p=lengths[pick] / lengths[pick].sum()))
+        st = int(starts[k]) + int(rng.integers(0, lengths[k] - qlen))
+        pairs.append((f"h{i}", _planted_read(rng, packed, st, qlen)))
+        plants.append(st)
+        owner.append(k)
+    return db, pairs, plants, owner

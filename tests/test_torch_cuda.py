@@ -46,7 +46,8 @@ def _k1_random(dev):
 
     return (
         pack_query(t(query, torch.uint8)), t(subject, torch.int8),
-        t(make_table64(device_matrix16(1, -2))), t(q_off), t(s_off),
+        t(make_table64(device_matrix16(1, -2))), t(q_off),
+        t(s_off, torch.int64),
         t(rng.choice([16, 22], n)), t(max_l), t(max_r),
     )
 
@@ -90,7 +91,8 @@ def _k1_mixed(dev):
     packed = pack_query(torch.from_numpy(query).to(dev)).cpu().numpy()
     return (view(packed, torch.uint8, 3), view(subject, torch.int8, 7),
             view(make_table64(device_matrix16(2, -3)), i32, 1),
-            view(q_off, i32, 1), view(s_off, i32, 3), view(x, i32, 1),
+            view(q_off, i32, 1), view(s_off, torch.int64, 3),
+            view(x, i32, 1),
             view(max_l, i32, 1), view(max_r, i32, 1))
 
 
@@ -771,3 +773,90 @@ def test_pipelined_mode_on_the_card(tmp_path, monkeypatch):
         assert np.array_equal(getattr(got["cuda:0"], f),
                               getattr(got["cpu"], f)), f
     assert len(got["cpu"]) > 0
+
+
+@pytest.mark.cuda
+def test_kernels_past_2g_bit_equal_to_plain_versions():
+    """K1, G, RR and R (one-hit and two-hit, on int64 coordinates: R's
+    wide kernels) bit-equal to their plain versions on seeds of a single
+    subject past 2^31 bases, made on the card
+    (``replay_sets.past_2g_cases``): K1's walks cross 2^31 and return
+    s_start past it, G's walks read the packed bytes there, RR's runs the
+    subject words there, and R orders and replays subject-local s past
+    2^31 (two sorts: the packed key needs 64 bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.tools.replay_sets import past_2g_cases
+
+    dev = torch.device("cuda:0")
+    cases = past_2g_cases(dev)
+    k1_args = cases["k1"][0]
+    n = k1_args[3].numel()
+    want = ungapped_extend_window_ref(*k1_args)
+    got = ungapped_extend_window(*k1_args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1].dtype == torch.int64 and int(got[2].max()) > 1000
+    assert int(got[1].min()) < (1 << 31) < int(got[1].max())
+    rr_args, rr_kw = cases["rr"]
+    runs = rp.right_run(*rr_args, **rr_kw)
+    assert torch.equal(runs, rp.right_run_ref(*rr_args, **rr_kw))
+    assert int((runs == 28).sum()) > 100
+    g_args, g_kw = cases["g"]
+    g_got = rp.approx_gate(*g_args, **g_kw)
+    g_want = rp.approx_gate_ref(*g_args, **g_kw)
+    for a, b in zip(g_got, g_want):
+        assert torch.equal(a, b)
+    assert int(((g_got[4] & rp.FLAG_NEED) != 0).sum()) > 500
+    r_args = cases["r"][0]
+    assert cases["r"][1]["key_shift"] == 0
+    assert int(rp.key_range_flag(k1_args[3], r_args[2], g_args[9], n_sub=1,
+                                 s_len=g_args[5].item(),
+                                 q_len=g_kw["concat_end"] + 1)) == 0
+    for name in ("r", "r_two_hit"):
+        r_args, kw = cases[name]
+        saved = rp.diag_replay(*r_args, **kw)
+        assert torch.equal(saved, rp.diag_replay_ref(*r_args, **kw))
+        assert 24 < int(saved.sum()) < n
+
+
+@pytest.mark.cuda
+def test_resident_database_too_large_raises():
+    """A database whose resident form does not fit in the card's free
+    memory raises MemoryError naming the bytes needed and the bytes free,
+    before anything is uploaded; blocks that PyTorch's allocator caches
+    count as free, so one just under the free memory with them passes
+    the check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import types
+
+    from gblastn_tpu_torch.engine.resident import (
+        SEARCH_WORK_BYTES,
+        check_fits,
+        free_bytes,
+        resident_bytes,
+        resident_from_reference,
+    )
+
+    dev = torch.device("cuda:0")
+    free, _total = torch.cuda.mem_get_info(dev)
+    fake = types.SimpleNamespace(padded_length=int(free) // 2 * 2,
+                                 num_seqs=1)
+    need = resident_bytes(fake.padded_length, 1)
+    assert need > free
+    with pytest.raises(MemoryError, match=f"needs {need} bytes") as e:
+        resident_from_reference(fake, dev)
+    assert " free" in str(e.value)
+    assert fake._torch_resident == {}
+    cached = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    del cached
+    assert torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
+        dev) >= 1 << 30
+    room = free_bytes(dev)
+    assert room >= torch.cuda.mem_get_info(dev)[0] + (1 << 30)
+    check_fits(room - SEARCH_WORK_BYTES, dev)
+    with pytest.raises(MemoryError):
+        check_fits(room - SEARCH_WORK_BYTES + 1, dev)
