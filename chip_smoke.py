@@ -91,6 +91,29 @@ after:
 3i. indexed megablast: makembindex, then config 1 through the CLI with
    -use_index true, plain and with -db_soft_mask: cuda bytes equal cpu
    bytes and the scanned runs' bytes;
+3j. two-hit seeding with -off_diagonal_range 4 at configs 1w, 2w and 2d
+   through the CLI (the card runs the scan, K1, RR at 1w and G; the host
+   replays across diagonals; no R): cuda bytes equal cpu bytes;
+   run_seeding at 2w equal to the host finish with the scan range, field
+   by field, and the host replay's time; the below-cutoff admission set
+   of tests/test_oracle_parity.py through search() on the card: 0 HSPs
+   at range 0, at least 8 at range 4;
+3k. streaming (engine.stream): (a) config 3s, bench.py's streamed leg
+   of config 3 (the 500 reads against the 300 Mb genome with
+   GBLASTN_TPU_STREAM=1, blocks of 2^27): -outfmt 6 bytes equal the
+   resident run's, the streamed InitHits the host finish's, K1 and G
+   once a block and R once, a cold and a warm batch timed; (b) configs
+   1, 1w and 2d, config 1 with -db_soft_mask and with -use_index through
+   the CLI at blocks of 2^20 bases: cuda bytes equal the resident cuda
+   and the cpu bytes, K1 and G a block, R a batch; (c) giant past the
+   card's memory: streamed with GBLASTN_TPU_STREAM=1 for its device peak,
+   held against the streamed check's need, then with no variable set
+   under a ballast tensor that leaves the card between that peak and what
+   the resident check demands, search() streams on its own (no resident
+   upload), every read at its plant, the hits past 2^31 as resident, and
+   its InitHits equal 3f's resident ones (held to the host finish) field
+   by field; the launches of K1, G and R, the escalated seeds, the peak
+   device memory and the time printed;
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
@@ -536,6 +559,39 @@ def compare_run(args, kw, label, card, reps):
             "launch_floor_ms": floor_ms}
 
 
+def host_init(batch):
+    """(InitHits, seconds, K1 seeds, raw seeds): the host finish
+    ``_finish_init_hits`` over the full fetch of K1's rows of a resident
+    one-hit ``batch`` (scan and K1 on its device), the InitHits its
+    device finish is held to; the seconds are the host finish's alone."""
+    from gblastn_tpu_torch.engine.seeding import (
+        _finish_init_hits,
+        ungapped_inputs,
+    )
+    from gblastn_tpu_torch.ops.ungapped import ungapped_extend_window
+
+    kw, okw = batch.seed_kw, batch.oracle_kw
+    ctx, k1_args, n_raw = ungapped_inputs(batch.seed_dev, **kw)
+    ung = ungapped_extend_window(*k1_args)
+    rows = [t.cpu().numpy() for t in (k1_args[3], k1_args[4], ctx,
+                                      *ung[:4])]
+    n_ctx = len(kw["x_dropoffs"])
+    t0 = time.time()
+    want = _finish_init_hits(
+        *rows, okw["word_cutoffs"], okw["subject_starts"], kw["word_size"],
+        concat_qlen=int(kw["context_offsets"][n_ctx]) - 2,
+        approx_ctx=okw["approx_ctx"])
+    return want, time.time() - t0, len(rows[0]), n_raw
+
+
+def same_init(got, want, what):
+    """Fails unless two InitHits agree field by field."""
+    for name in ("q_off", "s_off", "q_start", "s_start", "length", "score",
+                 "context", "oid"):
+        check(np.array_equal(getattr(got, name), getattr(want, name)),
+              f"{what}: the InitHits' {name} differ")
+
+
 def compare_finish(batch, label, card, reps, k1=None):
     """G and R at a batch's search-path inputs against their plain
     versions (compare_gate, compare_replay), then ``run_seeding`` on the
@@ -896,6 +952,7 @@ def hsp_rows(res):
 def main() -> int:
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "smoke needs a CUDA card", file=sys.stderr)
@@ -1120,7 +1177,8 @@ def main() -> int:
     # of them when the whole cpu run would take under about two minutes;
     # each kernel's launches read around the cold cuda run; the reads
     # that miss their locus (``loci``) listed. Returns what it measured.
-    def cli_path(tag, rs, loci, qlen, extra, db_name="db"):
+    def cli_path(tag, rs, loci, qlen, extra, db_name="db",
+                 host_replay=False, cpu_budget=120):
         fa = work / f"{tag}.fa"
         fa.write_text("".join(f">{r.seq_id}\n{r.sequence}\n" for r in rs))
         args = ["blastn", *extra, "-query", str(fa), "-db",
@@ -1141,9 +1199,14 @@ def main() -> int:
         out = (work / f"{tag}_cuda.tsv").read_bytes()
         check(out == (work / f"{tag}_cuda_warm.tsv").read_bytes(),
               f"two {tag} cuda runs disagree")
-        check(not any(k.startswith(("host.approx_gate", "host.diag_filter"))
-                      for k in spans),
-              f"the host gate or replay ran on the {tag} CLI path")
+        if host_replay:
+            check("host.diag_filter" in spans,
+                  f"the host replay did not run on the {tag} CLI path")
+        else:
+            check(not any(k.startswith(("host.approx_gate",
+                                        "host.diag_filter"))
+                          for k in spans),
+                  f"the host gate or replay ran on the {tag} CLI path")
         task = extra[extra.index("-task") + 1]
         size = (BATCH_SIZE_MEGABLAST if task == "megablast"
                 else BATCH_SIZE_BLASTN)
@@ -1162,7 +1225,7 @@ def main() -> int:
               "-device cuda and cpu")
         if len(batches) == 1:
             cpu_note = f"cpu plain {t_cpu:.2f} s, bytes equal"
-        elif t_cpu * len(batches) < 120:
+        elif t_cpu * len(batches) < cpu_budget:
             t_cpu = run_cli(args, "cpu", work / f"{tag}_cpu.tsv")
             check(out == (work / f"{tag}_cpu.tsv").read_bytes(),
                   f"{tag} tabular bytes differ between -device cuda and "
@@ -1426,6 +1489,109 @@ def main() -> int:
               f"{tag} CLI launches K1/K2/G/R/RR {ln} over {nb} batches")
         check(ln[2] == (0 if tag == "blastn_short" else nb),
               f"{tag} CLI launched G {ln[2]} times over {nb} batches")
+    # 6e'. two-hit seeding with -off_diagonal_range 4 (ROADMAP item 10's
+    # rest) at configs 1w, 2w and 2d through the CLI (cli_path): the card
+    # runs the scan, K1, RR (1w) and G, the host the replay across
+    # diagonals (no sort, no R); cuda bytes equal cpu bytes; run_seeding
+    # at 2w equal to the host finish with the scan range, field by field,
+    # and the host replay timed; the below-cutoff admission set of
+    # tests/test_oracle_parity.py through search() on the card
+    import dataclasses
+
+    from gblastn_tpu_torch.engine.seeding import _finish_init_hits
+    from gblastn_tpu_torch.tools.workloads import below_cutoff_reads
+
+    t_r4 = time.time()
+    for tag, extra in (("config1w", ["-task", "megablast", "-evalue",
+                                     "1e-5", "-window_size", "40"]),
+                       ("config2w", ["-task", "blastn", "-evalue", "1e-5",
+                                     "-window_size", "40"]),
+                       ("config2d", ["-task", "dc-megablast", "-evalue",
+                                     "1e-5"])):
+        rs, st, ql = two_hit[tag]
+        c = cli_path(f"{tag}_r4", rs, {r.seq_id: x for r, x in zip(rs, st)},
+                     ql, extra + ["-off_diagonal_range", "4"],
+                     host_replay=True, cpu_budget=60)
+        ln, nb = c["launches"], c["batches"]
+        check(ln[0] >= nb and ln[2] == nb and ln[3] == 0
+              and ln[4] == (nb if tag == "config1w" else 0),
+              f"{tag} -off_diagonal_range 4 CLI launches K1/K2/G/R/RR {ln} "
+              f"over {nb} batches")
+        cli_paths[f"{tag}_r4"] = c
+    b = setup_batch(reads2, db, dataclasses.replace(
+        config_options("config2w"), off_diagonal_range=4), dev)
+    kw_b, okw = b.seed_kw, b.oracle_kw
+    check(kw_b["scan_range"] == 4, "config 2w's batch lost the scan range")
+    guard(True)
+    counts_zero()
+    slog.reset()
+    t0 = time.time()
+    got = run_seeding(b.seed_dev, **kw_b)
+    t_dev = time.time() - t0
+    guard(False)
+    r4_launch = (k1.launches, k2.launches, kg.launches, kr.launches,
+                 krr.launches)
+    t_replay = slog.totals["host.diag_filter"]
+    t_approx2 = slog.totals.get("host.approx_gate", 0.0)
+    fetched = int(slog.values["seeding.fetch_bytes"])
+    check(r4_launch == (1, 0, 1, 0, 0),
+          f"2w run_seeding at range 4 launched K1/K2/G/R/RR {r4_launch}")
+    ctx, k1_args, _n = ungapped_inputs(b.seed_dev, **kw_b)
+    ext = k1(*k1_args)
+    n_k1 = k1_args[3].numel()
+    rows = [t.cpu().numpy() for t in (k1_args[3], k1_args[4], ctx,
+                                      *ext[:4])]
+    n_ctx = len(kw_b["x_dropoffs"])
+    t0 = time.time()
+    want = _finish_init_hits(
+        *rows, okw["word_cutoffs"], okw["subject_starts"],
+        kw_b["word_size"],
+        concat_qlen=int(kw_b["context_offsets"][n_ctx]) - 2,
+        approx_ctx=okw["approx_ctx"], window_size=40,
+        right_run=np.zeros(n_k1, np.int32), scan_range=4)
+    t_host = time.time() - t0
+    for name in ("q_off", "s_off", "q_start", "s_start", "length", "score",
+                 "context", "oid"):
+        check(np.array_equal(getattr(got, name), getattr(want, name)),
+              f"2w at range 4: run_seeding's {name} differs from the host "
+              "finish")
+    r0 = run_seeding(setup_batch(reads2, db, config_options("config2w"),
+                                 dev).seed_dev, **kw_b | {"scan_range": 0})
+    del b, k1_args, ext, rows, ctx
+    # the below-cutoff admission set: 0 HSPs at range 0, at least 8 at 4
+    g_bc, bc_reads = below_cutoff_reads()
+    bc_db = SequenceDB.from_records([FastaRecord("chr1", "", g_bc)])
+    bc_recs = [FastaRecord(*r) for r in bc_reads]
+    bc_n = {}
+    for sr in (0, 4):
+        guard(True)
+        counts_zero()
+        try:
+            res = search(bc_recs, bc_db, blastn_options(
+                evalue=20.0, window_size=40, dust=False,
+                off_diagonal_range=sr), device=dev)
+        finally:
+            guard(False)
+        bc_n[sr] = (sum(len(l.hsps) for q in res.queries
+                        for l in q.hsplists),
+                    (k1.launches, kg.launches, kr.launches))
+    check(bc_n[0][0] == 0 and bc_n[4][0] >= 8,
+          f"the below-cutoff set gave {bc_n[0][0]} HSPs at range 0 and "
+          f"{bc_n[4][0]} at range 4")
+    check(bc_n[4][1][2] == 0 and bc_n[0][1][2] == 1,
+          f"the below-cutoff set launched K1/G/R {bc_n}")
+    print(f"off-diagonal range 4: 2w run_seeding {len(got)} saved of {n_k1} "
+          f"K1 seeds (range 0: {len(r0)}), equal field by field to the host "
+          f"finish; run_seeding {t_dev * 1e3:.1f} ms with the host replay "
+          f"{t_replay * 1e3:.1f} ms and the second approximate pass "
+          f"{t_approx2 * 1e3:.1f} ms, {fetched} bytes fetched; the host "
+          f"finish on K1's rows {t_host:.2f} s; launches K1 {r4_launch[0]} "
+          f"K2 {r4_launch[1]} G {r4_launch[2]} R {r4_launch[3]} RR "
+          f"{r4_launch[4]}; below-cutoff set {bc_n[0][0]} HSPs at range 0, "
+          f"{bc_n[4][0]} at range 4 (search() on the card, K1/G/R "
+          f"{bc_n[4][1]}); phase {time.time() - t_r4:.1f} s  [{card}]")
+    del got, want, r0, bc_db
+
     # one CLI run on the card with the plain versions guarded and every
     # launch counter and stage timer set to 0 just before it: (output
     # bytes, launches of K1, K2, G, R and RR, seconds, stage totals)
@@ -1441,7 +1607,54 @@ def main() -> int:
                                          kg.launches, kr.launches,
                                          krr.launches), t, dict(slog.totals))
 
-    new_paths = {}
+    new_paths = {"config2w_r4_run_seeding": r4_launch}
+
+    # a CLI run with the database streamed (card_run with ``env`` set
+    # around it): the bytes, launches, seconds and spans, after checking
+    # that the batch streamed and never uploaded the resident form
+    def stream_run(args, out, env):
+        os.environ.update(env)
+        try:
+            got = card_run(args, out)
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        check("device.seeding.stream" in got[3]
+              and "setup.subject_upload" not in got[3],
+              f"{out}: the batch did not stream, or uploaded the resident "
+              "form")
+        return got
+
+    # each read's best hit within 64 bases of its plant (database
+    # coordinates) on its subject ``owner``; returns the reads past 2^31
+    # (at least 20 on giant, 30 on chroms)
+    def plants_found(tag, res, g_db, pairs, plants, owner):
+        starts = np.asarray(g_db.starts)
+        found = bad = far = 0
+        for q in res.queries:
+            best = None
+            for lst in q.hsplists:
+                for h in lst.hsps:
+                    if best is None or h.score > best[1].score:
+                        best = (lst.oid, h)
+            if best is None:
+                continue
+            found += 1
+            oid, h = best
+            lo = int(starts[oid]) + min(h.s_off, h.s_end)
+            p = plants[q.query_index]
+            if not (p - 64 <= lo <= p + 64) or oid != owner[q.query_index]:
+                bad += 1
+            if p + QUERY_LEN > (1 << 31):
+                far += 1
+        check(found == len(pairs) and bad == 0,
+              f"{tag}: {found} of {len(pairs)} reads found, {bad} away from "
+              "their plants")
+        n_far = (far if tag.startswith("giant")
+                 else sum(o >= 13 for o in owner))
+        check(n_far >= (30 if tag.startswith("chroms") else 20),
+              f"{tag}: {n_far} hits past 2^31")
+        return n_far
 
     # a genome-scale phase (7a): ``pairs`` (name, sequence) planted at
     # ``plants`` (database coordinates) on subjects ``owner`` of ``g_db``,
@@ -1450,7 +1663,8 @@ def main() -> int:
     # subject; run_seeding's InitHits equal to the host finish; the
     # -outfmt 6 rendering's sstart at each plant past 2^31; the resident
     # bytes, the peak device memory, the process's peak RSS, the batch's
-    # time and its largest spans printed. Returns the search's launches.
+    # time and its largest spans printed. Returns the search's launches,
+    # run_seeding's InitHits and the reads past 2^31.
     def genome_phase(tag, g_db, pairs, plants, owner, t_db):
         import io
         import resource
@@ -1460,7 +1674,6 @@ def main() -> int:
             SEARCH_WORK_BYTES,
             free_bytes,
         )
-        from gblastn_tpu_torch.engine.seeding import _finish_init_hits
         from gblastn_tpu_torch.format.render import ResultRenderer
         from gblastn_tpu_torch.ops.seeding import BUILD_CHUNK
 
@@ -1485,33 +1698,8 @@ def main() -> int:
         peak_reserved = torch.cuda.max_memory_reserved()
         check(launch[0] == launch[2] == launch[3] == 1 and launch[4] == 0,
               f"{tag}: search() launches K1/K2/G/R/RR {launch}")
+        n_far = plants_found(tag, res, g_db, pairs, plants, owner)
         starts = np.asarray(g_db.starts)
-        found = bad = far = 0
-        hits = {}
-        for q in res.queries:
-            best = None
-            for lst in q.hsplists:
-                for h in lst.hsps:
-                    if best is None or h.score > best[1].score:
-                        best = (lst.oid, h)
-            if best is None:
-                continue
-            found += 1
-            oid, h = best
-            lo = int(starts[oid]) + min(h.s_off, h.s_end)
-            p = plants[q.query_index]
-            if not (p - 64 <= lo <= p + 64) or oid != owner[q.query_index]:
-                bad += 1
-            if p + QUERY_LEN > (1 << 31):
-                far += 1
-            hits[q.query_index] = (oid, lo)
-        check(found == len(pairs) and bad == 0,
-              f"{tag}: {found} of {len(pairs)} reads found, {bad} away from "
-              "their plants")
-        n_far = (far if tag == "giant"
-                 else sum(o >= 13 for o in owner))
-        check(n_far >= (20 if tag == "giant" else 30),
-              f"{tag}: {n_far} hits past 2^31")
         # the -outfmt 6 rendering: each read past 2^31 prints its plant
         buf = io.StringIO()
         rr = ResultRenderer(6, None, buf, g_db, options, dbname=tag,
@@ -1537,27 +1725,11 @@ def main() -> int:
         # run_seeding against the host finish on the full fetch of K1's
         # rows
         batch = setup_batch(g_reads, g_db, options, dev)
-        kw, okw = batch.seed_kw, batch.oracle_kw
         t0 = time.time()
-        got = run_seeding(batch.seed_dev, **kw)
+        got = run_seeding(batch.seed_dev, **batch.seed_kw)
         t_dev = time.time() - t0
-        ctx, k1_args, n_raw = ungapped_inputs(batch.seed_dev, **kw)
-        ung = k1(*k1_args)
-        rows = [t.cpu().numpy() for t in (k1_args[3], k1_args[4], ctx,
-                                          *ung[:4])]
-        n_ctx = len(kw["x_dropoffs"])
-        t0 = time.time()
-        want = _finish_init_hits(
-            *rows, okw["word_cutoffs"], okw["subject_starts"],
-            kw["word_size"],
-            concat_qlen=int(kw["context_offsets"][n_ctx]) - 2,
-            approx_ctx=okw["approx_ctx"])
-        t_host = time.time() - t0
-        for name in ("q_off", "s_off", "q_start", "s_start", "length",
-                     "score", "context", "oid"):
-            check(np.array_equal(getattr(got, name), getattr(want, name)),
-                  f"{tag}: run_seeding's {name} differs from the host "
-                  "finish")
+        want, t_host, n_k1, n_raw = host_init(batch)
+        same_init(got, want, f"{tag}: run_seeding against the host finish")
         check(int(np.max(got.s_start)) > (1 << 31),
               f"{tag}: no saved seed past 2^31")
         r = next(iter(g_db._torch_resident.values()))
@@ -1597,10 +1769,146 @@ def main() -> int:
               f"upload, so by the check the largest database it holds is "
               f"about {largest} bases; peak RSS {rss / 2**30:.2f} GiB; "
               f"run_seeding {t_dev * 1e3:.1f} ms warm, {n_raw} raw seeds, "
-              f"{k1_args[3].numel()} K1 seeds, {len(got)} saved, equal "
+              f"{n_k1} K1 seeds, {len(got)} saved, equal "
               f"field by field to the host finish ({t_host:.2f} s); "
               f"{key_note}  [{card}]")
         del batch, res, r
+        return launch, got, n_far
+
+    # 7c. giant past the card's memory (ROADMAP item 13's rest): streamed
+    # with GBLASTN_TPU_STREAM=1 first, for its device peak; then, with no
+    # variable set, a ballast tensor leaves the card less free memory
+    # than the resident check demands and more than that peak and the
+    # streamed path's own check: search() streams on its own (the span
+    # device.seeding.stream, no setup.subject_upload), every read at its
+    # plant and as many past 2^31 as 7a found; the streamed InitHits equal
+    # 7a's resident ones (``want``) field by field; K1's launches (at most
+    # one a block), the escalated seeds, the peak device memory and the
+    # time printed. Returns the search's launches.
+    def giant_streamed(g_db, pairs, plants, owner, want, want_far):
+        from gblastn_tpu_torch.engine.resident import (
+            SEARCH_WORK_BYTES,
+            free_bytes,
+            resident_bytes,
+        )
+        from gblastn_tpu_torch.engine.stream import (
+            run_seeding_streamed,
+            stream_bytes,
+        )
+
+        g_reads = [FastaRecord(n, "", x) for n, x in pairs]
+        g_db._torch_resident.clear()
+        torch.cuda.empty_cache()
+        os.environ["GBLASTN_TPU_STREAM"] = "1"
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            slog.reset()
+            t0 = time.time()
+            res = search(g_reads, g_db, options, device=dev)
+            torch.cuda.synchronize()
+            t_forced = time.time() - t0
+            forced_peak = torch.cuda.max_memory_reserved()
+            forced_alloc = torch.cuda.max_memory_allocated()
+            plants_found("giant (GBLASTN_TPU_STREAM=1)", res, g_db, pairs,
+                         plants, owner)
+            sdb = setup_batch(g_reads, g_db, options, dev).stream
+        finally:
+            os.environ.pop("GBLASTN_TPU_STREAM")
+        need_stream = stream_bytes(sdb.plan, g_db.num_seqs)
+        need_res = (resident_bytes(g_db.padded_length, g_db.num_seqs)
+                    + SEARCH_WORK_BYTES)
+        n_blocks = sdb.plan.n_blocks
+        cached = sum(c["bytes"] for c in g_db._torch_stream_cache.values())
+        del res, sdb
+        g_db._torch_stream_cache.clear()
+        torch.cuda.empty_cache()
+        # the streamed check's need against the peak reserve less the
+        # block cache (which takes only what is free beside the need)
+        work_peak = forced_peak - cached
+        check(work_peak <= need_stream,
+              f"giant: the streamed search reserved {forced_peak} bytes, "
+              f"{work_peak} beside its {cached}-byte block cache, past its "
+              f"check's {need_stream}")
+        low = max(work_peak, need_stream)
+        check(low < need_res,
+              f"giant: the streamed search's peak {work_peak} or need "
+              f"{need_stream} is not below the resident need {need_res}")
+        target = (low + need_res) // 2
+        free = free_bytes(dev)
+        check(free > target, f"giant: {free} bytes free, under {target}")
+        ballast = torch.empty(free - target, dtype=torch.uint8, device=dev)
+        try:
+            free_b = free_bytes(dev)
+            check(low <= free_b < need_res,
+                  f"giant: {free_b} bytes free under the ballast, not in "
+                  f"[{low}, {need_res})")
+            torch.cuda.reset_peak_memory_stats()
+            guard(True)
+            counts_zero()
+            slog.reset()
+            t0 = time.time()
+            try:
+                res = search(g_reads, g_db, options, device=dev)
+                torch.cuda.synchronize()
+            finally:
+                guard(False)
+            t_auto = time.time() - t0
+            launch = (k1.launches, k2.launches, kg.launches, kr.launches,
+                      krr.launches)
+            spans, vals = dict(slog.totals), dict(slog.values)
+            held = ballast.numel()
+            peak = torch.cuda.max_memory_allocated() - held
+            peak_res = torch.cuda.max_memory_reserved() - held
+            check("device.seeding.stream" in spans
+                  and "setup.subject_upload" not in spans,
+                  "giant under the ballast did not stream on its own, or "
+                  "uploaded the resident form")
+            blocks = int(vals["seeding.stream_blocks"])
+            check(1 <= launch[0] <= blocks
+                  and launch[1:] == (0, launch[0], 1, 0),
+                  f"giant streamed: launches K1/K2/G/R/RR {launch} over "
+                  f"{blocks} blocks")
+            n_far = plants_found("giant (streamed on its own)", res, g_db,
+                                 pairs, plants, owner)
+            check(n_far == want_far,
+                  f"giant streamed: {n_far} hits past 2^31, resident "
+                  f"{want_far}")
+            batch = setup_batch(g_reads, g_db, options, dev)
+            check(batch.stream is not None,
+                  "giant's batch under the ballast did not stream")
+            slog.reset()
+            t0 = time.time()
+            got = run_seeding_streamed(batch.stream, batch.seed_dev,
+                                       **batch.seed_kw)
+            t_seed = time.time() - t0
+            escalated = int(slog.values["seeding.stream_escalated"])
+            gate_edges = int(slog.values["seeding.stream_gate_edges"])
+            same_init(got, want, "giant streamed against the resident "
+                      "run_seeding (held to the host finish in 7a)")
+            del batch, res
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+        top = sorted(spans.items(), key=lambda kv: -kv[1])[:6]
+        print(f"giant streamed: GBLASTN_TPU_STREAM=1 {t_forced:.2f} s, "
+              f"peak reserve {forced_peak} ({forced_alloc} allocated), "
+              f"{work_peak} beside the {cached}-byte block cache "
+              f"({100 * work_peak / need_stream:.1f}% of the streamed "
+              f"need); the check's needs: resident {need_res}, streamed "
+              f"{need_stream}; "
+              f"a ballast left {free_b} bytes free and search() streamed "
+              f"on its own in {n_blocks} blocks ({blocks} with scan work): "
+              f"{len(pairs)} reads at their plants, {n_far} past 2^31; "
+              f"launches K1 {launch[0]} K2 {launch[1]} G {launch[2]} R "
+              f"{launch[3]} RR {launch[4]}; {escalated} seeds escalated on "
+              f"the host ({gate_edges} for G alone); search() "
+              f"{t_auto:.2f} s with cold blocks (the "
+              f"host's subject caches warm from 7a) ("
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in top)
+              + f"); peak device memory {peak} bytes ({peak / 2**30:.2f} "
+              f"GiB; reserve {peak_res}); streamed seeding {t_seed:.2f} s, "
+              f"{len(got)} InitHits equal field by field to the resident "
+              f"run_seeding's  [{card}]")
         return launch
 
     # 6f. query splitting (ROADMAP item 10): a second strain's assembly as
@@ -1986,6 +2294,59 @@ def main() -> int:
     print("db index (config 1): " + "; ".join(idx_notes)
           + f"; phase {time.time() - t_idx:.1f} s  [{card}]")
 
+    # 6l. streaming (ROADMAP item 13's rest) at small blocks: configs 1,
+    # 1w and 2d, config 1 with -db_soft_mask and config 1 with -use_index
+    # through the CLI with GBLASTN_TPU_STREAM=1 and blocks of 2^20 bases:
+    # cuda bytes equal the resident cuda bytes and the cpu bytes; K1 and G
+    # (and RR at 1w) at most once a block with seeds in a batch, R once a
+    # batch, no K2; no resident upload
+    t_st = time.time()
+    small = {"GBLASTN_TPU_STREAM": "1",
+             "GBLASTN_TPU_BLOCK_BASES": str(1 << 20)}
+    d_args = ["blastn", "-task", "dc-megablast", "-evalue", "1e-5",
+              "-query", str(work / "config2d.fa"), "-db", str(work / "db"),
+              "-outfmt", "6", "-max_target_seqs", "10"]
+    n_small = -(-db.padded_length // (1 << 20))
+    st_notes = []
+    for tag, args, cuda_file, cpu_file, nb in (
+            ("config1", c1_args + ["-db", str(work / "db")],
+             "config1_cuda.tsv", "config1_cpu_b1.tsv", 1),
+            ("config1w", ["blastn", "-task", "megablast", "-evalue", "1e-5",
+                          "-window_size", "40", "-query",
+                          str(work / "config1w.fa"), "-db", str(work / "db"),
+                          "-outfmt", "6", "-max_target_seqs", "10"],
+             "config1w_cuda.tsv", "config1w_cpu_b1.tsv", 1),
+            ("config2d", d_args, "config2d_cuda.tsv", "config2d_cpu.tsv",
+             cli_paths["config2d"]["batches"]),
+            ("db_soft_mask", c1_args + ["-db", str(work / "db_mask"),
+                                        "-db_soft_mask", "40"],
+             "db_soft_mask.tsv", "db_soft_mask_cpu.tsv", 1),
+            ("index", c1_args + ["-db", str(work / "db"), "-use_index",
+                                 "true"], "index.tsv", "index_cpu.tsv", 1)):
+        out, launch, t_cuda, spans = stream_run(
+            args, work / f"{tag}_stream.tsv", small)
+        check(out == (work / cuda_file).read_bytes(),
+              f"streamed {tag}: the bytes differ from the resident run's")
+        check(out == (work / cpu_file).read_bytes(),
+              f"streamed {tag}: the bytes differ from the cpu run's")
+        check(1 <= launch[0] <= nb * n_small and launch[1] == 0
+              and launch[2] == launch[0] and 1 <= launch[3] <= nb
+              and launch[4] == (launch[0] if tag == "config1w" else 0),
+              f"streamed {tag}: launches K1/K2/G/R/RR {launch} over {nb} "
+              f"batches of {n_small} blocks")
+        check(tag != "index" or "setup.index_upload" not in spans,
+              "the streamed index run uploaded the whole index")
+        new_paths[f"{tag}_stream_cli"] = launch
+        st_notes.append(
+            f"{tag} {out.count(b'\n')} lines, K1 {launch[0]}, G "
+            f"{launch[2]}, R {launch[3]} and RR {launch[4]} launches over "
+            f"{nb} batches, cuda {t_cuda:.2f} s (device.seeding.stream "
+            f"{spans['device.seeding.stream'] * 1e3:.1f} ms, host.diag_filter"
+            f" {spans.get('host.diag_filter', 0.0) * 1e3:.1f} ms)")
+    print(f"streamed at 2^20-base blocks ({n_small} blocks): "
+          + "; ".join(st_notes) + f"; bytes equal to the resident cuda and "
+          f"the cpu runs; phase {time.time() - t_st:.1f} s  [{card}]")
+
     del genome, db, reads, reads2, reads2d
 
     # 7. scale: one 500-read batch against a 300 Mb resident genome
@@ -2019,6 +2380,97 @@ def main() -> int:
           f"{t_search:.2f} s (cold, incl. resident upload) for "
           f"{len(big_reads)} reads, all loci found, peak device memory "
           f"{peak / 2**30:.2f} GiB  [{card}]")
+
+    # 7'. config 3s, bench.py bench_config3's streamed leg: the same 500
+    # reads against the 300 Mb genome with GBLASTN_TPU_STREAM=1 and the
+    # default blocks (3 of 2^27 bases), its resident form dropped first:
+    # -outfmt 6 bytes equal the resident run's; K1 and G once a block, R
+    # once, no K2; a cold batch (uploads) and a warm one (the block cache)
+    # timed; the streamed InitHits equal the host finish's over the
+    # resident K1 rows, field by field
+    from gblastn_tpu_torch.engine.stream import (
+        run_seeding_streamed,
+        stream_bytes,
+    )
+    from gblastn_tpu_torch.format.render import ResultRenderer
+
+    def tabular(result, tdb):
+        import io
+
+        buf = io.StringIO()
+        rr = ResultRenderer(6, None, buf, tdb, options, dbname="db",
+                            task="megablast")
+        rr.emit(result)
+        rr.finalize()
+        return buf.getvalue()
+
+    want3 = tabular(res, big_db)
+    init3, t_host3, _n, _r = host_init(setup_batch(big_reads, big_db,
+                                                   options, dev))
+    big_db._torch_resident.clear()
+    torch.cuda.empty_cache()
+    os.environ["GBLASTN_TPU_STREAM"] = "1"
+    runs3 = []
+    try:
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            counts_zero()
+            slog.reset()
+            guard(True)
+            t0 = time.time()
+            try:
+                res = search(big_reads, big_db, options, device=dev)
+                torch.cuda.synchronize()
+            finally:
+                guard(False)
+            runs3.append((time.time() - t0, (k1.launches, k2.launches,
+                                             kg.launches, kr.launches,
+                                             krr.launches),
+                          dict(slog.totals), dict(slog.values),
+                          torch.cuda.max_memory_allocated(),
+                          torch.cuda.max_memory_reserved()))
+            check(tabular(res, big_db) == want3,
+                  "config 3s: the streamed bytes differ from the resident "
+                  "run's")
+        b3 = setup_batch(big_reads, big_db, options, dev)
+        same_init(run_seeding_streamed(b3.stream, b3.seed_dev, **b3.seed_kw),
+                  init3, "config 3s: streamed against the host finish")
+        # the cold batch's peak reserve beside the block cache against
+        # the streamed check's need
+        cached3 = sum(c["bytes"]
+                      for c in big_db._torch_stream_cache.values())
+        need3 = stream_bytes(b3.stream.plan, big_db.num_seqs)
+        work3 = runs3[0][5] - cached3
+        check(work3 <= need3,
+              f"config 3s: the streamed search reserved {runs3[0][5]} "
+              f"bytes, {work3} beside its block cache, past its check's "
+              f"{need3}")
+        del b3
+    finally:
+        os.environ.pop("GBLASTN_TPU_STREAM")
+    s3_launch, s3_spans, s3_vals = runs3[0][1], runs3[0][2], runs3[0][3]
+    n3 = int(s3_vals["seeding.stream_blocks"])
+    check(s3_launch == (n3, 0, n3, 1, 0) and n3 == 3,
+          f"config 3s launches K1/K2/G/R/RR {s3_launch} over {n3} blocks")
+    check("device.seeding.stream" in s3_spans
+          and "setup.subject_upload" not in s3_spans,
+          "config 3s did not stream, or uploaded the resident form")
+    new_paths["config3s_search"] = s3_launch
+    top3 = sorted(runs3[1][2].items(), key=lambda kv: -kv[1])[:5]
+    print(f"config 3s (300 Mb streamed in {n3} blocks of 2^27 bases): bytes "
+          f"equal to the resident run's ({want3.count(chr(10))} lines); "
+          f"search() cold {runs3[0][0]:.2f} s (upload "
+          f"{s3_spans.get('device.seeding.stream.upload', 0.0) * 1e3:.1f} "
+          f"ms), warm {runs3[1][0]:.2f} s ("
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in top3)
+          + f"); {int(s3_vals['seeding.stream_escalated'])} seeds escalated"
+          f" ({int(s3_vals['seeding.stream_gate_edges'])} for G alone); "
+          f"InitHits equal to the host finish's ({t_host3:.2f} s); "
+          f"peak reserve {work3} beside the block cache "
+          f"({100 * work3 / need3:.1f}% of the streamed need {need3}); "
+          f"peak device memory {runs3[0][4] / 2**30:.2f} GiB against "
+          f"{peak / 2**30:.2f} resident; launches K1 {s3_launch[0]} K2 "
+          f"{s3_launch[1]} G {s3_launch[2]} R {s3_launch[3]}  [{card}]")
 
     del big_db, res, big_reads
     torch.cuda.empty_cache()
@@ -2058,9 +2510,12 @@ def main() -> int:
         g_db, g_pairs, g_plants = made[:3]
         g_owner = made[3] if len(made) > 3 else [0] * len(g_pairs)
         t_db = time.time() - t0
-        new_paths[f"{tag}_search"] = genome_phase(
+        new_paths[f"{tag}_search"], init, n_far = genome_phase(
             tag, g_db, g_pairs, g_plants, g_owner, t_db)
-        del made, g_db
+        if tag == "giant":
+            new_paths["giant_stream_search"] = giant_streamed(
+                g_db, g_pairs, g_plants, g_owner, init, n_far)
+        del made, g_db, init
         torch.cuda.empty_cache()
 
     # slice 2's main path is config 2 through the CLI; K1 and K2 are
@@ -2080,6 +2535,8 @@ def main() -> int:
               "past2g": r_far, "past2g_two_hit": r2_far}
     rr_all = {**rr_recs, "random11": rr_rand[0], "random28": rr_rand[1],
               "past2g": rr_far}
+    print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} "
+          f"s  [{card}]")
     print(smi)
     print(json.dumps({"kernels": [
         k1_entry(k1_c2, k1_c1, k1_rand, c2_launches[0],

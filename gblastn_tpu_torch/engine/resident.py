@@ -10,11 +10,14 @@ Coordinates are int64 from the scan to R, so the only bound on a
 database's size is the card's memory: before anything is uploaded,
 the bytes the resident form needs (``resident_bytes``) and a search's
 working memory (``SEARCH_WORK_BYTES``, measured) are held against the
-card's free memory, and a database that does not fit raises
-MemoryError naming both. There is no fallback to the CPU or to
-streaming. The derived arrays are built ``ops.seeding.BUILD_CHUNK``
-bases a step, so the upload's transients stay a few hundred MB whatever
-the database's size.
+card's free memory. A database that does not fit streams through the
+card in blocks instead (engine.stream decides, before this module is
+reached; with GBLASTN_TPU_STREAM=0 it raises MemoryError), and
+``check_fits`` raises MemoryError naming both numbers for any caller
+that uploads a database that does not fit. There is no fallback to the
+CPU. The derived arrays are built ``ops.seeding.BUILD_CHUNK`` bases a
+step, so the upload's transients stay a few hundred MB whatever the
+database's size.
 """
 from __future__ import annotations
 
@@ -94,8 +97,8 @@ def check_fits(need: int, device: torch.device) -> None:
         raise MemoryError(
             f"the resident database needs {need} bytes of device memory, "
             f"and a search {SEARCH_WORK_BYTES} more, and {device} has "
-            f"{free} free; the port holds the whole database on one card "
-            "and does not stream")
+            f"{free} free; a search streams such a database instead "
+            "(engine.stream)")
 
 
 def resident_from_reference(db: SequenceDB,

@@ -11,15 +11,15 @@ longer than the task's chunk are split and stitched (engine.split), and
 ``prelim_search_steps`` is the generator form that the pipelined mode
 interleaves (engine.pipeline). The port covers megablast, blastn,
 blastn-short, vecscreen and dc-megablast (every template), with one-hit
-or two-hit seeding (``window_size``), indexed megablast (``use_index``)
-and the database's soft and hard masks, over a database of any size
-held resident on one device (int64 subject coordinates throughout; a
-database the card cannot hold raises, engine.resident). The JAX
-package's subject streaming (GBLASTN_TPU_STREAM,
-GBLASTN_TPU_STREAM_THRESHOLD) is a workaround for the TPU's memory whose
-results equal the resident path's, so the port reads neither variable.
-Two-hit seeding with ``off_diagonal_range`` and multi-device sharding
-raise NotImplementedError naming the ROADMAP item that ports them.
+or two-hit seeding (``window_size``, with or without
+``off_diagonal_range``), indexed megablast (``use_index``) and the
+database's soft and hard masks, over a database held resident on one
+device (int64 subject coordinates throughout) or, where the card cannot
+hold it, streamed through the card in blocks (engine.stream, which
+reads GBLASTN_TPU_STREAM, GBLASTN_TPU_STREAM_THRESHOLD and the block
+variables; a streamed batch skips the gapped filter, which reads the
+resident subject). Multi-device sharding raises NotImplementedError
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -62,8 +62,13 @@ from gblastn_tpu_torch.engine.seeding import (
     drive,
     run_seeding_steps,
 )
+from gblastn_tpu_torch.engine.stream import (
+    StreamedDB,
+    choose,
+    run_seeding_streamed_steps,
+)
 from gblastn_tpu_torch.ops.replay import query_bytes
-from gblastn_tpu_torch.ops.seeding import pack_query_nibbles
+from gblastn_tpu_torch.ops.seeding import pack_query_nibbles, scan_span
 from gblastn_tpu_torch.ops.ungapped import make_table64, pack_query
 
 NEG_CLIP = -(1 << 24)
@@ -124,13 +129,9 @@ def _refuse_outside_slice(options: SearchOptions) -> None:
             f"(ROADMAP Queue 1 item {item})"
         )
 
-    if options.window_size > 0 and options.off_diagonal_range > 0:
-        no("two-hit seeding with -off_diagonal_range (a replay across "
-           "diagonals)", 10)
     if _shards_requested() > 1:
         no("multi-device sharding (GBLASTN_TPU_SHARDS > 1)", 14)
-    # the database's size is bounded only by the card's memory, checked
-    # where it is uploaded (engine.resident)
+    # a database the card cannot hold streams (engine.stream.choose)
 
 
 def _warn_once(db, key: str, msg: str) -> None:
@@ -238,10 +239,12 @@ class BatchSetup:
     seed_dev: SeedingDeviceData
     seed_kw: dict           # run_seeding keywords (= ungapped_inputs')
     query: torch.Tensor     # uint8[Q] query bytes on the device (K2 reads)
-    oracle_kw: dict         # the host oracle's own inputs: word_cutoffs,
+    oracle_kw: dict         # the host finish's own inputs: word_cutoffs,
                             # subject_starts, approx_ctx (the keywords of
-                            # engine.seeding._finish_init_hits); no search
-                            # reads them
+                            # engine.seeding._finish_init_hits; also
+                            # seed_dev.finish_kw)
+    stream: StreamedDB | None = None   # the streamed database, or None:
+                                       # seed_dev.resident holds it
 
 
 def setup_batch(
@@ -251,8 +254,9 @@ def setup_batch(
     device: str | torch.device = "cuda",
 ) -> BatchSetup:
     """Host setup of one batch (query block, masks, lookup table, derived
-    parameters, gate data) and its upload beside the resident
-    database."""
+    parameters, gate data) and its upload beside the resident database,
+    or, where the database streams (engine.stream.choose), without
+    it."""
     dev = resolve_device(device)
     options.validate()
     _refuse_outside_slice(options)
@@ -399,8 +403,8 @@ def setup_batch(
     # the device finish (G) demotes exact-passing seeds whose
     # byte-quantized score misses the reduced cutoff, as the reference
     # does for word >= 11; approx_ctx is the same data for the host
-    # oracle (engine.seeding._finish_init_hits, in oracle_kw), which no
-    # search runs
+    # finish (engine.seeding._finish_init_hits, in oracle_kw), which the
+    # off-diagonal replay and the streamed path run
     from gblastn_tpu_torch.params.derived import nucl_score_table_packed
 
     reduced = np.array(
@@ -418,11 +422,19 @@ def setup_batch(
         "table": table256,
     }
 
-    with slog.time("setup.subject_upload"):
-        resident = resident_from_reference(db, dev)
+    m16 = device_matrix16(options.reward, options.penalty)
+    stream = choose(
+        db, dev, span=scan_span(lut.lut_word_size, lut.disc_offsets),
+        scan_step=lut.scan_step, mask_intervals=db_mask_ivs,
+        db_index=db_index, matrix16=m16, query=qbuf)
+    resident = None
+    if stream is None:
+        with slog.time("setup.subject_upload"):
+            resident = resident_from_reference(db, dev)
+    oracle_kw = dict(word_cutoffs=word_cutoffs, subject_starts=db.starts,
+                     approx_ctx=approx_ctx)
     with slog.time("setup.batch_upload"):
         q_dev = torch.from_numpy(qbuf).to(dev)
-        m16 = device_matrix16(options.reward, options.penalty)
 
         def csr(t):
             positions = (t.positions if len(t.positions)
@@ -440,7 +452,8 @@ def setup_batch(
             allowed = np.zeros(len(qbuf), bool)
             allowed[lut.positions] = True
             q_allowed = torch.from_numpy(allowed).to(dev)
-            offsets, positions = _index_on_device(db, db_index, dev)
+            if stream is None:   # a streamed block takes its own slice
+                offsets, positions = _index_on_device(db, db_index, dev)
         mask_starts = mask_ends = None
         if db_mask_ivs is not None and len(db_mask_ivs):
             ivs = torch.from_numpy(np.ascontiguousarray(
@@ -465,6 +478,7 @@ def setup_batch(
             q_allowed=q_allowed,
             mask_starts=mask_starts,
             mask_ends=mask_ends,
+            finish_kw=oracle_kw,
         )
     seed_kw = dict(
         word_size=lut.word_size,
@@ -474,11 +488,10 @@ def setup_batch(
         x_dropoffs=x_dropoffs,
         disc_offsets=lut.disc_offsets,
         disc_offsets2=lut2.disc_offsets if lut2 is not None else None,
+        scan_range=options.off_diagonal_range if options.window_size else 0,
     )
-    oracle_kw = dict(word_cutoffs=word_cutoffs, subject_starts=db.starts,
-                     approx_ctx=approx_ctx)
     return BatchSetup(qblock, params, masks, seed_dev, seed_kw, q_dev,
-                      oracle_kw)
+                      oracle_kw, stream)
 
 
 def _build_gapped_filter(batch: BatchSetup) -> DeviceGappedData | None:
@@ -543,18 +556,25 @@ def prelim_search_steps(
     batch = setup_batch(records, db, options, device)
     qblock, params, masks = batch.qblock, batch.params, batch.masks
     with slog.time("device.seeding"):
-        sgen = run_seeding_steps(batch.seed_dev, **batch.seed_kw)
+        if batch.stream is not None:
+            sgen = run_seeding_streamed_steps(batch.stream, batch.seed_dev,
+                                              **batch.seed_kw)
+        else:
+            sgen = run_seeding_steps(batch.seed_dev, **batch.seed_kw)
         next(sgen)
     yield
     with slog.time("device.seeding"):
         init = drive(sgen)
     # the JAX package's engage rule (gblastn_tpu/engine/search.py:930):
     # the filter runs from GBLASTN_TPU_GAPPED_FILTER_MIN candidates up,
-    # or always when GBLASTN_TPU_GAPPED_FILTER=1
+    # or always when GBLASTN_TPU_GAPPED_FILTER=1; it reads the resident
+    # subject, so a streamed batch does not run it (an exact rejection
+    # filter: no result changes)
     filter_min = int(os.environ.get("GBLASTN_TPU_GAPPED_FILTER_MIN",
                                     "2000"))
     device_gapped = None
-    if (len(init) >= filter_min
+    if batch.stream is None and (
+            len(init) >= filter_min
             or os.environ.get("GBLASTN_TPU_GAPPED_FILTER") == "1"):
         device_gapped = _build_gapped_filter(batch)
     slog.diagnostics.good_init_extends += len(init)

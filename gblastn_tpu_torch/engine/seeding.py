@@ -14,6 +14,16 @@ diagonal replay R (ops.replay), reproducing
 ``s_BlastnDiagTableExtendInitialHit`` (NCBI na_ungapped.c:612-755) with
 scan range 0, and one device-to-host fetch of the saved seeds only.
 
+Two-hit seeding with a scan range (``-off_diagonal_range``) probes the
+neighbour diagonals, so its replay runs on the host in scan order
+(``two_hit_scan_range_filter``, as in the JAX package): the card runs
+the scan, K1, RR and G, one fetch brings every seed's rows, and the host
+finish ``_finish_init_hits`` replays them (``gated``: G's demotion is
+already in the rows), then gives the seeds the off-diagonal probe saved
+below the cutoff their approximate data. The streamed path
+(engine.stream) runs the same device finish over its blocks' rows, and
+the same host finish where it has a scan range.
+
 Sizes are exact, so the JAX package's capacity buckets and retries have
 no counterpart here. K1 has no window and returns exact extensions, so
 there is no phase-0 clamp and no phase-2 escalation either; G has no
@@ -22,11 +32,11 @@ of these were exact in the JAX package, so removing them changes no
 result. Subject coordinates are int64 from the scan to the fetch, so a
 database of any size the card holds is searched as one resident block
 (R reads int32 subject-local coordinates while every subject is shorter
-than ``NARROW_SUBJECT``). ``_finish_init_hits`` is the host finish, kept
-as the oracle
-that the tests and chip_smoke.py hold the device finish to, with its
-host twins ``compute_right_runs``, ``one_hit_diag_filter`` and
-``two_hit_diag_filter``; no search runs through them. The JAX package's
+than ``NARROW_SUBJECT``). ``_finish_init_hits`` is the host finish: the
+off-diagonal replay runs it (on the streamed path too), and the tests and
+chip_smoke.py hold the device finish to it, with its host twins
+``compute_right_runs``, ``one_hit_diag_filter``, ``two_hit_diag_filter``
+and ``two_hit_scan_range_filter``. The JAX package's
 ``two_hit_admission`` (a superset filter that shrinks K1's TPU lane
 work) has no counterpart: it changes no result.
 """
@@ -77,9 +87,10 @@ class InitHits:
 
 @dataclass
 class SeedingDeviceData:
-    """One batch's device inputs beside the resident database."""
+    """One batch's device inputs beside the resident database (a
+    streamed batch has none: engine.stream gives each block its own)."""
 
-    resident: ResidentDB
+    resident: ResidentDB | None
     query_packed: torch.Tensor   # uint8[Q] K1 query bytes (mask | deg << 4)
     query_nib: torch.Tensor      # int64[Q/8] 4na-mask nibbles
     lut_offsets: torch.Tensor    # int32[4^w + 1] CSR offsets
@@ -99,6 +110,10 @@ class SeedingDeviceData:
                                             # index's CSR
     mask_starts: torch.Tensor | None = None  # int64[M] database soft-mask
     mask_ends: torch.Tensor | None = None    # intervals (sorted)
+    finish_kw: dict | None = None   # the host finish's own inputs
+                                    # (word_cutoffs, subject_starts,
+                                    # approx_ctx): the off-diagonal
+                                    # replay and the streamed path run it
 
 
 # R reads int32 subject-local coordinates where every subject is
@@ -358,7 +373,103 @@ def two_hit_diag_filter(
     return saved
 
 
-def ungapped_inputs(
+def two_hit_scan_range_filter(
+    q_off: np.ndarray,
+    s_off: np.ndarray,
+    oid: np.ndarray,
+    word_size: int,
+    window: int,
+    scan_range: int,
+    ung_s_start: np.ndarray,
+    ung_length: np.ndarray,
+    ung_score: np.ndarray,
+    cutoff: np.ndarray,
+    right_run: np.ndarray,
+    diag_mask: int = 0,
+) -> np.ndarray:
+    """Two-hit replay with the off-diagonal probe
+    (-off_diagonal_range > 0): s_BlastnDiagTableExtendInitialHit
+    (na_ungapped.c:612) with Delta = min(scan_range, window - word).
+
+    Unlike the per-diagonal replay, neighbour diagonals interact, so
+    hits process in scan order (oid, then s_off, then q_off) over an
+    exact per-(oid, diag) state map (the eDiagHash container semantics;
+    with ``diag_mask`` the neighbour keys alias as the eDiagArray's
+    do). A virgin diagonal starts at last_hit = -window. The state
+    keeps the pending hit's length, and a probe finds a neighbour's
+    pending (unsaved) hit whose span qualifies; ``right_run`` carries
+    the double-word probe (s_TypeOfWord), and a double word (a run of
+    word bases or more) skips the probe. A seed the probe finds is saved
+    even below its cutoff (``off_found``, na_ungapped.c:732). The loop
+    reads Python lists (the JAX package's loop over numpy scalars, the
+    same machine)."""
+    n = len(q_off)
+    saved = np.zeros(n, dtype=bool)
+    if n == 0:
+        return saved
+    order = np.lexsort((q_off, s_off, oid)).tolist()
+    delta_max = max(min(scan_range, window - word_size), 0)
+    q_l, s_l, o_l, st_l, ln_l, sc_l, cu_l, rr_l = (
+        np.asarray(a).tolist() for a in (
+            q_off, s_off, oid, ung_s_start, ung_length, ung_score, cutoff,
+            right_run))
+    virgin = (-window, 0, 0)
+    # (oid, diag) -> (last_hit, flag, pending hit length)
+    state: dict[tuple[int, int], tuple[int, int, int]] = {}
+    get = state.get
+    deltas = range(1, delta_max + 1)
+    keep = []
+    for i in order:
+        o = o_l[i]
+        s = s_l[i]
+        diag = s - q_l[i]
+        if diag_mask:
+            diag &= diag_mask
+        last_hit, flag, _hl = get((o, diag), virgin)
+        if s < last_hit:
+            continue
+        s_end = s + word_size
+        hit_ready = 1
+        off_found = False
+        if flag or s_end > last_hit + window:
+            ext = rr_l[i]
+            s_end += ext
+            if ext < word_size:
+                # a single word: probe the neighbour diagonals for a
+                # pending hit whose span qualifies
+                s_a = s + word_size - window
+                s_b = s_end - 2 * word_size
+                for delta in deltas:
+                    up = diag + delta
+                    dn = diag - delta
+                    if diag_mask:
+                        up &= diag_mask
+                        dn &= diag_mask
+                    st = get((o, up))
+                    if (st and st[2] and st[0] - delta >= s_a
+                            and st[0] - st[2] <= s_b):
+                        off_found = True
+                        break
+                    st = get((o, dn))
+                    if (st and st[2] and st[0] >= s_a
+                            and st[0] - st[2] + delta <= s_b):
+                        off_found = True
+                        break
+                if not off_found:
+                    hit_ready = 0
+        if hit_ready:
+            if off_found or sc_l[i] >= cu_l[i]:
+                keep.append(i)
+                s_end = st_l[i] + ln_l[i]
+            else:
+                hit_ready = 0
+        state[(o, diag)] = (s_end, hit_ready,
+                            0 if hit_ready else s_end - s)
+    saved[keep] = True
+    return saved
+
+
+def scan_parts(
     dev: SeedingDeviceData,
     *,
     word_size: int,
@@ -369,20 +480,22 @@ def ungapped_inputs(
     disc_offsets: tuple[int, ...] | None = None,   # discontiguous template
     disc_offsets2: tuple[int, ...] | None = None,  # the second one, with
                                                    # dev.lut2_*
-):
-    """Scan + mini-extension on the device. Returns (ctx, k1_args,
-    n_raw): the survivors' contexts, the argument tuple of
-    ``ungapped_extend_window`` for them (int64 subject offsets), and the
-    raw seed count. With two templates, both tables are scanned and their
-    seeds concatenated, template 1 first, as ``merge_two_template_raw``
-    merges them in the JAX package (the replay's stable order then breaks
-    ties by index as the host does). With ``dev.q_allowed`` the raw seeds
-    come from the database index (indexed megablast); ``dev.mask_starts``
-    / ``mask_ends`` keep seeds off the database's soft-masked words."""
+    scan_range: int = 0,            # the finish's (run_seeding_steps)
+    first: int = 0,                 # the first scan position
+    n_scan: int | None = None,      # scan positions (default: to the end)
+) -> list[tuple]:
+    """Scan + mini-extension on the device, one part a template:
+    ``seeding_scan_mini``'s (qs, ss, ctx, x_drop, max_l, max_r, n_raw)
+    over the positions ``first + k * scan_step`` (k < ``n_scan``; by
+    default every position of the resident subject), template 1 first.
+    With ``dev.q_allowed`` the raw seeds come from the database index
+    (indexed megablast); ``dev.mask_starts`` / ``mask_ends`` keep seeds
+    off the database's soft-masked words."""
     res = dev.resident
     n_ctx = len(x_dropoffs)
-    n_scan = max(
-        (res.length - scan_span(lut_word, disc_offsets)) // scan_step + 1, 1)
+    if n_scan is None:
+        n_scan = max((res.length - first - scan_span(lut_word, disc_offsets))
+                     // scan_step + 1, 1)
     device = res.device
     ctx_off = torch.from_numpy(
         np.asarray(context_offsets[: n_ctx + 1], np.int64)).to(device)
@@ -390,23 +503,40 @@ def ungapped_inputs(
     tables = [(dev.lut_offsets, dev.lut_positions, disc_offsets)]
     if disc_offsets2:
         tables.append((dev.lut2_offsets, dev.lut2_positions, disc_offsets2))
-    parts = [seeding_scan_mini(
+    return [seeding_scan_mini(
         res.subject2, res.valid, offsets, positions, dev.query_nib,
         res.subject_w, ctx_off, xdrop, res.starts, res.ends,
         query_len=int(dev.query_packed.shape[0]), scan_step=scan_step,
         lut_word=lut_word, word_size=word_size, n_scan=n_scan,
         disc_offsets=disc, mask_starts=dev.mask_starts,
-        mask_ends=dev.mask_ends, query=dev.query, q_allowed=dev.q_allowed)
+        mask_ends=dev.mask_ends, query=dev.query, q_allowed=dev.q_allowed,
+        first=first)
         for offsets, positions, disc in tables]
+
+
+def join_parts(dev: SeedingDeviceData, parts: list[tuple]):
+    """(ctx, k1_args, n_raw) of ``scan_parts``' parts: the survivors'
+    contexts, the argument tuple of ``ungapped_extend_window`` for them
+    (int64 subject offsets) and the raw seed count. With two templates
+    their seeds are concatenated, template 1 first, as
+    ``merge_two_template_raw`` merges them in the JAX package (the
+    replay's stable order then breaks ties by index as the host does)."""
     if len(parts) == 1:
         qs, ss, ctx, xd, max_l, max_r, n_raw = parts[0]
     else:
         qs, ss, ctx, xd, max_l, max_r = (torch.cat(c) for c in zip(
             *(p[:6] for p in parts)))
         n_raw = sum(p[6] for p in parts)
-    k1_args = (dev.query_packed, res.subject2, dev.table64,
+    k1_args = (dev.query_packed, dev.resident.subject2, dev.table64,
                qs.to(torch.int32), ss, xd, max_l, max_r)
     return ctx, k1_args, n_raw
+
+
+def ungapped_inputs(dev: SeedingDeviceData, **scan_kw):
+    """Scan + mini-extension on the device (``scan_parts``, whose
+    keywords these are), joined (``join_parts``): (ctx, k1_args,
+    n_raw)."""
+    return join_parts(dev, scan_parts(dev, **scan_kw))
 
 
 def probes_double_words(dev: SeedingDeviceData, scan_kw: dict) -> bool:
@@ -431,24 +561,28 @@ def drive(gen):
 
 def run_seeding(
     dev: SeedingDeviceData,
-    **scan_kw,                      # ungapped_inputs keywords
+    **scan_kw,                      # scan_parts keywords
 ) -> InitHits:
     """Seeding pass over the resident database: scan + mini and K1 on
     the device, the device finish (RR where it probes, G, R; one-hit or
-    two-hit by ``dev.window``), one fetch of the saved seeds. A seed that
-    K1 or G flagged out of range, or a key field past the bound the sort
-    packed it for (``key_range_flag``), raises ValueError at the fetch,
-    before a row is used. ``run_seeding_steps`` driven to its end."""
+    two-hit by ``dev.window``), one fetch of the saved seeds. With a
+    window and ``scan_range`` > 0 (-off_diagonal_range) the card stops
+    after G, one fetch brings every seed's rows and the host replays
+    them (``host_finish``). A seed that K1 or G flagged out of range, or
+    a key field past the bound the sort packed it for
+    (``key_range_flag``), raises ValueError at the fetch, before a row is
+    used. ``run_seeding_steps`` driven to its end."""
     return drive(run_seeding_steps(dev, **scan_kw))
 
 
 def run_seeding_steps(dev: SeedingDeviceData, **scan_kw):
     """Generator form of ``run_seeding``: yields exactly once, after the
     device finish is launched and before its one wait (the ``nonzero``
-    of R's saved seeds), so a caller can run host work of another batch
-    while the card computes (engine.pipeline). Only the scan waits
-    before the yield (it sizes its seed arrays). The InitHits arrive as
-    StopIteration.value."""
+    of R's saved seeds, or the off-diagonal path's fetch), so a caller
+    can run host work of another batch while the card computes
+    (engine.pipeline). Only the scan waits before the yield (it sizes its
+    seed arrays). The InitHits arrive as StopIteration.value."""
+    offdiag = dev.window > 0 and scan_kw.get("scan_range", 0) > 0
     with slog.time("device.seeding.pipeline"):
         ctx, k1_args, n_raw = ungapped_inputs(dev, **scan_kw)
         ung = ungapped_extend_window(*k1_args)
@@ -457,12 +591,31 @@ def run_seeding_steps(dev: SeedingDeviceData, **scan_kw):
     slog.diagnostics.init_extends += n
     if n:
         with slog.time("device.seeding.finish"):
-            rows, head, saved = device_finish(dev, k1_args, ctx, ung,
-                                              scan_kw)
+            if offdiag:
+                rows, head = gated_rows(dev, k1_args, ctx, ung, scan_kw)
+            else:
+                rows, head, saved = device_finish(dev, k1_args, ctx, ung,
+                                                  scan_kw)
     yield                                           # launched, not fetched
     if n == 0:
         z = np.zeros(0, dtype=np.int32)
         return InitHits(z, z, z, z, z, z, z, z)
+    if offdiag:
+        with slog.time("device.seeding.fetch"):
+            out = torch.cat([head, rows.reshape(-1)]).cpu().numpy()
+        slog.add_value("seeding.fetch_bytes", out.nbytes)
+        check_flags(out[0:1])
+        check_gate_flags(out[1:2])
+        return host_finish(dev, out[2:].reshape(rows.shape[0], -1), scan_kw)
+    return fetch_saved(rows, head, saved)
+
+
+def fetch_saved(rows: torch.Tensor, head: torch.Tensor,
+                saved: torch.Tensor) -> InitHits:
+    """The device finish's one wait and fetch: ``device_finish``'s rows,
+    head and R's saved flags to the InitHits of the saved seeds in score
+    order. A range flag in the head raises ValueError before a row is
+    used."""
     with slog.time("device.seeding.finish"):
         keep = torch.nonzero(saved).squeeze(1)      # the one wait
     with slog.time("device.seeding.fetch"):
@@ -482,6 +635,30 @@ def run_seeding_steps(dev: SeedingDeviceData, **scan_kw):
                     context=c_np[order], oid=oid[order])
 
 
+def host_finish(dev: SeedingDeviceData, rows: np.ndarray,
+                scan_kw: dict) -> InitHits:
+    """The off-diagonal path's host half: ``gated_rows``' fetched rows
+    (int32[9 or 10, n]) through ``_finish_init_hits`` with the window,
+    the runs and the scan range, ``gated`` (G demoted them on the card),
+    with ``dev.finish_kw``'s cutoffs, subject starts and approximate
+    data."""
+    q_np, c_np, uq, ulen, usc, *rest = rows
+    if len(rest) == 5:
+        runs, *halves = rest
+    else:
+        runs, halves = np.zeros(len(q_np), np.int32), rest
+    s_np, us = (np.stack(h, 1).view(np.int64)[:, 0]
+                for h in (halves[:2], halves[2:]))
+    fkw = dev.finish_kw
+    n_ctx = dev.ctx_tables.shape[1]
+    return _finish_init_hits(
+        q_np, s_np, c_np, uq, us, ulen, usc, fkw["word_cutoffs"],
+        fkw["subject_starts"], scan_kw["word_size"],
+        concat_qlen=int(scan_kw["context_offsets"][n_ctx]) - 2,
+        approx_ctx=fkw["approx_ctx"], window_size=dev.window,
+        right_run=runs, scan_range=scan_kw["scan_range"], gated=True)
+
+
 def gate_inputs(dev: SeedingDeviceData, k1_args, ctx, ung) -> tuple:
     """The arguments of ``approx_gate`` for K1's seeds and outputs
     (``ung``), on their device: the packed query bytes, the resident
@@ -496,12 +673,16 @@ def gate_inputs(dev: SeedingDeviceData, k1_args, ctx, ung) -> tuple:
             oid.to(torch.int32), *ung[:4])
 
 
-def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
-                  concat_end: int) -> tuple[tuple, int, torch.Tensor]:
+def replay_inputs(dev: SeedingDeviceData, seeds: tuple, rows, *,
+                  concat_end: int, bounds: tuple | None = None
+                  ) -> tuple[tuple, int, torch.Tensor]:
     """The arguments of ``diag_replay`` (key, order, s_loc, end_loc,
-    score, cutoff) for the seeds of ``g_args`` (``gate_inputs``) and their
-    extension ``rows`` (q_start, s_start, length, score) after the gate,
-    its ``key_shift``, and the sort's range flag: subject-local
+    score, cutoff) for the ``seeds`` (q_off, int64 s_off, int32 ctx and
+    oid: ``gate_inputs``' ``g_args[6:10]``) and their extension ``rows``
+    (q_start, s_start, length, score) after the gate, its ``key_shift``,
+    and the sort's range flag, over the resident database's subjects, or
+    over ``bounds`` (the subject starts on the seeds' device and the
+    longest subject's length) where there is none: subject-local
     coordinates (int32 where the longest subject is shorter than
     ``NARROW_SUBJECT``, else int64, which R's wide kernels read), the keys
     sorted by ``replay_keys`` with the diagonal mask of the batch's
@@ -509,15 +690,16 @@ def replay_inputs(dev: SeedingDeviceData, g_args: tuple, rows, *,
     count, longest subject, query buffer), one sort where they fit 63
     bits; ``key_range_flag`` of the seeds against those bounds (an int32
     on the device, nonzero where a field would overwrite the next)."""
-    res = dev.resident
-    qs, ss, ctx32, oid32 = g_args[6:10]
+    starts, longest = (bounds if bounds is not None
+                       else (dev.resident.starts, dev.resident.longest))
+    qs, ss, ctx32, oid32 = seeds
     _uq, us, ulen, usc = rows
-    base = res.starts[oid32.long()]
+    base = starts[oid32.long()]
     s_loc = ss - base
     end_loc = us - base + ulen
-    if res.longest < NARROW_SUBJECT:
+    if longest < NARROW_SUBJECT:
         s_loc, end_loc = s_loc.to(torch.int32), end_loc.to(torch.int32)
-    bounds = dict(n_sub=res.starts.numel(), s_len=res.longest,
+    bounds = dict(n_sub=starts.numel(), s_len=longest,
                   q_len=dev.query_packed.numel())
     key, order, shift = replay_keys(
         qs, s_loc, oid32, diag_table_mask(concat_end - 1, dev.window),
@@ -540,19 +722,16 @@ def run_inputs(dev: SeedingDeviceData, k1_args, g_args,
             g_args[9])
 
 
-def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
-    """RR, G, the sort and R over K1's outputs on the seeds' device, for
-    the scan keywords ``scan_kw`` (``ungapped_inputs``'); nothing here
-    waits on the card. Returns (rows, head, saved): int32[10, n] rows
-    (q_off, ctx, q_start, length, score, oid, then the low and high
-    words of the int64 s_off and s_start; the extension after G), an
-    int32[4] head (gated seeds; K1's and G's
-    FLAG_RANGE if any seed carries it, else 0; the sort's
-    ``key_range_flag``) and R's uint8[n] saved. RR runs where
-    ``run_inputs`` gives its arguments, and its runs feed G and the
-    two-hit R; G runs for word sizes of 11 and up, as the reference
-    scores approximately first only there; R is two-hit when
-    ``dev.window`` > 0."""
+def gate_rows(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
+    """RR and G over K1's outputs on the seeds' device, for the scan
+    keywords ``scan_kw`` (``scan_parts``'); nothing here waits on the
+    card. Returns (g_args, runs, rows, head, g_flags): ``gate_inputs``'
+    arguments, RR's runs (None where ``run_inputs`` gives no arguments:
+    the runs are then 0), the extension rows after G (q_start, s_start,
+    length, score), a list of int32 scalars (gated seeds; K1's and G's
+    FLAG_RANGE if any seed carries it, else 0) and G's flags (None where
+    G did not run). G runs for word sizes of 11 and up, as the reference
+    scores approximately first only there."""
     word_size = scan_kw["word_size"]
     concat_end = int(scan_kw["context_offsets"][dev.ctx_tables.shape[1]]) - 1
     g_args = gate_inputs(dev, k1_args, ctx, ung)
@@ -562,6 +741,7 @@ def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
     rows = ung[:4]
     n_need = torch.zeros((), dtype=torch.int32, device=ung[4].device)
     head = [n_need, (ung[4] & FLAG_RANGE).amax()]
+    g_flags = None
     if word_size >= 11:
         *rows, g_flags = approx_gate(*g_args, word_size=word_size,
                                      concat_end=concat_end, right_run=runs)
@@ -569,16 +749,66 @@ def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
         head.append((g_flags & GATE_FLAG_RANGE).amax())
     else:
         head.append(n_need)
-    r_args, shift, key_flag = replay_inputs(dev, g_args, rows,
-                                            concat_end=concat_end)
-    head.append(key_flag)
-    saved = diag_replay(*r_args, word_size=word_size, window=dev.window,
-                        right_run=runs, key_shift=shift)
+    return g_args, runs, rows, head, g_flags
+
+
+def gated_rows(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
+    """The off-diagonal path's device half (``gate_rows``, no sort and
+    no R): int32 rows of every seed (q_off, ctx, q_start, length, score,
+    RR's runs where it ran, then the low and high words of the int64
+    s_off and s_start; the extension after G) and an int32[2] head (K1's
+    and G's FLAG_RANGE), for one fetch."""
+    g_args, runs, rows, head, _f = gate_rows(dev, k1_args, ctx, ung,
+                                             scan_kw)
+    return (offdiag_rows(g_args[6], g_args[8], g_args[7], rows, runs),
+            torch.stack(head[1:]))
+
+
+def offdiag_rows(q_off, ctx32, s_off, rows, runs) -> torch.Tensor:
+    """int32 rows of every seed for ``host_finish``: q_off, ctx, q_start,
+    length, score, RR's runs where they ran, then the low and high words
+    of the int64 s_off and s_start (``rows``: the extension after G)."""
     uq, us, ulen, usc = rows
-    rows = torch.cat([torch.stack([g_args[6], g_args[8], uq, ulen, usc,
-                                   g_args[9]]),
-                      _halves(g_args[7]), _halves(us)])
-    return rows, torch.stack(head), saved
+    cols = [q_off, ctx32, uq, ulen, usc]
+    if runs is not None:
+        cols.append(runs.to(torch.int32))
+    return torch.cat([torch.stack(cols), _halves(s_off), _halves(us)])
+
+
+def device_finish(dev: SeedingDeviceData, k1_args, ctx, ung, scan_kw: dict):
+    """RR, G (``gate_rows``), the sort and R over K1's outputs on the
+    seeds' device; nothing here waits on the card. Returns (rows, head,
+    saved): int32[10, n] rows (q_off, ctx, q_start, length, score, oid,
+    then the low and high words of the int64 s_off and s_start; the
+    extension after G), an int32[4] head (gated seeds; K1's and G's
+    FLAG_RANGE if any seed carries it, else 0; the sort's
+    ``key_range_flag``) and R's uint8[n] saved. RR's runs feed G and the
+    two-hit R; R is two-hit when ``dev.window`` > 0."""
+    concat_end = int(scan_kw["context_offsets"][dev.ctx_tables.shape[1]]) - 1
+    g_args, runs, rows, head, _f = gate_rows(dev, k1_args, ctx, ung,
+                                             scan_kw)
+    return replay_rows(dev, g_args[6:10], rows, runs, head, scan_kw,
+                       concat_end=concat_end)
+
+
+def replay_rows(dev: SeedingDeviceData, seeds: tuple, rows, runs, head,
+                scan_kw: dict, *, concat_end: int,
+                bounds: tuple | None = None):
+    """The sort and R over ``seeds`` (q_off, int64 s_off, int32 ctx and
+    oid) and their ``rows`` after G (``replay_inputs``, whose ``bounds``
+    these are), with RR's ``runs`` (or None); nothing here waits on the
+    card. Returns ``device_finish``'s (rows, head, saved): ``head`` (a
+    list of int32 scalars) gains the sort's range flag."""
+    r_args, shift, key_flag = replay_inputs(dev, seeds, rows,
+                                            concat_end=concat_end,
+                                            bounds=bounds)
+    saved = diag_replay(*r_args, word_size=scan_kw["word_size"],
+                        window=dev.window, right_run=runs, key_shift=shift)
+    qs, ss, ctx32, oid32 = seeds
+    uq, us, ulen, usc = rows
+    rows = torch.cat([torch.stack([qs, ctx32, uq, ulen, usc, oid32]),
+                      _halves(ss), _halves(us)])
+    return rows, torch.stack(head + [key_flag]), saved
 
 
 def _halves(t: torch.Tensor) -> torch.Tensor:
@@ -587,16 +817,54 @@ def _halves(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32).view(-1, 2).t()
 
 
+def host_gate(approx_ctx: dict, subject_starts, oid, q_np, s_np, ctx,
+              rows: tuple, need: np.ndarray, right_run, word_size: int):
+    """G on the host for the seeds ``need`` marks: the approximate walk
+    (``engine.approx.compute_approx_info`` over ``approx_ctx``, the whole
+    packed database) and, for those it demotes, their approximate
+    extension in place of ``rows`` (q_start, s_start, length, score; a
+    demoted length reaches the word's end and RR's run). Returns (the
+    rows, copied where any changed, and the demoted mask)."""
+    from gblastn_tpu_torch.engine.approx import compute_approx_info
+
+    oid = np.asarray(oid, np.int64)
+    with slog.time("host.approx_gate"):
+        demote, a_sc, a_q, a_s, a_r = compute_approx_info(
+            approx_ctx["query"], approx_ctx["concat_end"],
+            approx_ctx["packed"],
+            np.asarray(subject_starts, np.int64)[oid],
+            np.asarray(approx_ctx["subject_ends"], np.int64)[oid],
+            np.asarray(q_np, np.int64), np.asarray(s_np, np.int64),
+            ctx, approx_ctx["x_dropoffs"], approx_ctx["reduced"],
+            approx_ctx["table"], need)
+    d = need & demote
+    if not d.any():
+        return rows, d
+    ext = right_run.astype(np.int64) if right_run is not None else 0
+    sme = np.asarray(s_np, np.int64) + word_size + ext
+    ug_q, ug_s, ug_len, ug_score = (np.asarray(r).copy() for r in rows)
+    ug_q[d] = a_q[d]
+    ug_s[d] = a_s[d]
+    ug_len[d] = np.maximum(sme[d] - a_s[d], a_r[d] - a_q[d] + 1)
+    ug_score[d] = a_sc[d]
+    return (ug_q, ug_s, ug_len, ug_score), d
+
+
 def _finish_init_hits(
     q_np, s_np, ctx, ug_q, ug_s, ug_len, ug_score,
     word_cutoffs, subject_starts, word_size,
     concat_qlen: int = 1 << 30,   # > 8000 -> exact (hash) diagonals
     approx_ctx: dict | None = None,   # approximate-ungapped gate data
     window_size: int = 0, right_run=None,   # two-hit window and runs
-    scan_range: int = 0,          # -off_diagonal_range (not ported)
+    scan_range: int = 0,          # -off_diagonal_range
+    gated: bool = False,          # the rows carry G's demotion already
 ) -> InitHits:
-    """Host finishing: per-context cutoffs, oid mapping, the one- or
-    two-hit diagonal replay (scan range 0), final score ordering.
+    """Host finishing: per-context cutoffs, oid mapping, the first
+    approximate pass (unless ``gated``: the device path's rows come from
+    G, which demoted them), the one- or two-hit diagonal replay (with
+    ``scan_range`` the off-diagonal probe, ``two_hit_scan_range_filter``,
+    then the approximate data of the seeds it saved below the cutoff),
+    final score ordering.
 
     The replay runs in subject-local int32 coordinates (diagonal state
     is keyed per (oid, diag), and shifting s_off and ung_s_start by the
@@ -654,10 +922,6 @@ def _finish_init_hits(
                 "a single diagonal class spans >= 2^31 subject bases; "
                 "the replay cannot run in int32"
             )
-    if window_size > 0 and scan_range > 0:
-        raise NotImplementedError(
-            "gblastn_tpu_torch: two-hit seeding with -off_diagonal_range "
-            "is not ported yet (ROADMAP Queue 1 item 10)")
     s_loc = s_loc64.astype(np.int32)
     ug_s_loc = ug_s_loc64.astype(np.int32)
     q32 = q_np.astype(np.int32)
@@ -669,41 +933,17 @@ def _finish_init_hits(
     # only rescored exactly above the reduced cutoff; a seed whose
     # byte-quantized score stays below it keeps the low approximate
     # score and fails the cutoff even when its exact score passes.
-    if approx_ctx is not None and word_size >= 11:
+    if approx_ctx is not None and word_size >= 11 and not gated:
         # only cutoff-passing seeds can be demoted (failed seeds push
-        # last_hit from the seed end either way)
+        # last_hit from the seed end either way); below-cutoff seeds
+        # saved by the off-diagonal probe get their approximate data
+        # after the replay
         need = score32 >= cutoff
         if need.any():
-            from gblastn_tpu_torch.engine.approx import compute_approx_info
-
-            sub_st = np.asarray(subject_starts, np.int64)[oid]
-            sub_en = np.asarray(approx_ctx["subject_ends"],
-                                np.int64)[oid]
-            with slog.time("host.approx_gate"):
-                demote, a_sc, a_q, a_s, a_r = compute_approx_info(
-                    approx_ctx["query"], approx_ctx["concat_end"],
-                    approx_ctx["packed"], sub_st, sub_en,
-                    np.asarray(q_np, np.int64),
-                    np.asarray(s_np, np.int64),
-                    ctx, approx_ctx["x_dropoffs"],
-                    approx_ctx["reduced"],
-                    approx_ctx["table"], need,
-                )
-            if demote.any():
-                ext = (right_run.astype(np.int64)
-                       if right_run is not None else 0)
-                sme = np.asarray(s_np, np.int64) + word_size + ext
-                ug_q = np.asarray(ug_q).copy()
-                ug_s = np.asarray(ug_s).copy()
-                ug_len = np.asarray(ug_len).copy()
-                ug_score = np.asarray(ug_score).copy()
-                d = demote
-                ug_q[d] = a_q[d]
-                ug_s[d] = a_s[d]
-                ug_len[d] = np.maximum(
-                    sme[d] - a_s[d], a_r[d] - a_q[d] + 1
-                )
-                ug_score[d] = a_sc[d]
+            (ug_q, ug_s, ug_len, ug_score), d = host_gate(
+                approx_ctx, subject_starts, oid, q_np, s_np, ctx,
+                (ug_q, ug_s, ug_len, ug_score), need, right_run, word_size)
+            if d.any():
                 ug_s_loc64b = ug_s.astype(np.int64) - base
                 if rebase_shift is not None:
                     ug_s_loc64b = ug_s_loc64b - rebase_shift
@@ -713,7 +953,15 @@ def _finish_init_hits(
 
     dmask = diag_table_mask(concat_qlen, window_size)
     with slog.time("host.diag_filter"):
-        if window_size > 0:
+        if window_size > 0 and scan_range > 0:
+            saved = two_hit_scan_range_filter(
+                q32, s_loc, oid, word_size, window_size, scan_range,
+                ug_s_loc, len32, score32, cutoff,
+                right_run if right_run is not None
+                else np.zeros(len(q_np), np.int32),
+                diag_mask=dmask,
+            )
+        elif window_size > 0:
             saved = two_hit_diag_filter(
                 q32, s_loc, oid, word_size, window_size,
                 ug_s_loc, len32, score32, cutoff,
@@ -726,6 +974,17 @@ def _finish_init_hits(
                 q32, s_loc, oid, word_size, ug_s_loc, len32, score32,
                 cutoff, diag_mask=dmask,
             )
+    if (approx_ctx is not None and word_size >= 11
+            and window_size > 0 and scan_range > 0):
+        # the off-diagonal probe saves below-cutoff seeds with the
+        # reference's ungapped data: approximate unless the byte score
+        # reached the reduced cutoff (na_ungapped.c:732); ``score32`` is
+        # the score after the first demotion
+        sub2 = saved & (score32 < cutoff)
+        if sub2.any():
+            (ug_q, ug_s, ug_len, ug_score), _d = host_gate(
+                approx_ctx, subject_starts, oid, q_np, s_np, ctx,
+                (ug_q, ug_s, ug_len, ug_score), sub2, right_run, word_size)
     keep = np.nonzero(saved)[0]
     order = sort_by_score_order(
         ug_score[keep], ug_s[keep], ug_len[keep], ug_q[keep]

@@ -154,7 +154,8 @@ def _fan_out(pos, start, count, table):
 
 def _scan_positions(subject2, subject_valid, lut_offsets, lut_positions,
                     presence, k0: int, k1: int, scan_step: int,
-                    lut_word: int, disc_offsets, mask_starts, mask_ends):
+                    lut_word: int, disc_offsets, mask_starts, mask_ends,
+                    first: int = 0):
     """``scan_block`` over the scan positions k0 <= k < k1, with the
     table's ``presence_table``."""
     dev = subject2.device
@@ -162,6 +163,8 @@ def _scan_positions(subject2, subject_valid, lut_offsets, lut_positions,
     w = len(offs)
     span = scan_span(lut_word, disc_offsets)
     pos = torch.arange(k0, k1, dtype=torch.int64, device=dev) * scan_step
+    if first:
+        pos += first
     words = torch.zeros(k1 - k0, dtype=torch.int64, device=dev)
     valid_word = torch.ones(k1 - k0, dtype=torch.bool, device=dev)
     for r, j in enumerate(offs):
@@ -183,10 +186,12 @@ def _scan_positions(subject2, subject_valid, lut_offsets, lut_positions,
 def scan_block(subject2, subject_valid, lut_offsets, lut_positions, *,
                scan_step: int, lut_word: int, n_scan: int,
                disc_offsets=None, mask_starts=None, mask_ends=None,
-               chunk: int = SCAN_CHUNK):
+               chunk: int = SCAN_CHUNK, first: int = 0):
     """Scan the subject at stride positions and resolve CSR seeds.
 
-    Word codes are taken at positions ``k * scan_step`` (k < n_scan) from
+    Word codes are taken at positions ``first + k * scan_step`` (k <
+    n_scan; a streamed block starts at its halo, so that its positions
+    keep the global stride phase) from
     ``lut_word`` consecutive valid bases, or with ``disc_offsets`` (a
     discontiguous template) from the bases at those offsets of a window
     that must be valid throughout (s_FillDiscMBTable resets on any
@@ -203,7 +208,7 @@ def scan_block(subject2, subject_valid, lut_offsets, lut_positions, *,
     parts = [_scan_positions(subject2, subject_valid, lut_offsets,
                              lut_positions, presence, k0,
                              min(k0 + chunk, n_scan), scan_step, lut_word,
-                             disc_offsets, mask_starts, mask_ends)
+                             disc_offsets, mask_starts, mask_ends, first)
              for k0 in range(0, max(n_scan, 1), chunk)]
     if len(parts) == 1:
         return parts[0]
@@ -333,7 +338,7 @@ def seeding_scan_mini(subject2, subject_valid, lut_offsets, lut_positions,
                       scan_step: int, lut_word: int, word_size: int,
                       n_scan: int, disc_offsets=None, mask_starts=None,
                       mask_ends=None, query=None, q_allowed=None,
-                      chunk: int = SCAN_CHUNK):
+                      chunk: int = SCAN_CHUNK, first: int = 0):
     """Scan -> mini-extension -> per-survivor context, X-drop and walk
     budgets (the inputs of K1).
 
@@ -342,8 +347,8 @@ def seeding_scan_mini(subject2, subject_valid, lut_offsets, lut_positions,
     template, whose word is the whole template window) there is no
     mini-extension: every raw seed goes on (s_BlastNaExtendDirect,
     na_ungapped.c:941). ``mask_starts`` / ``mask_ends`` are the database
-    soft-mask intervals, and ``chunk`` the scan's positions a step
-    (``scan_block``). With ``q_allowed`` (indexed megablast) the raw
+    soft-mask intervals, and ``chunk`` and ``first`` the scan's positions
+    a step and its first position (``scan_block``). With ``q_allowed`` (indexed megablast) the raw
     seeds come from ``indexed_scan_block`` over ``query`` (uint8 BLASTNA
     codes), and ``lut_offsets`` / ``lut_positions`` hold the database
     index. Returns (qs, ss, ctx, x_drop, max_l, max_r, n_raw): int64 seed
@@ -358,7 +363,7 @@ def seeding_scan_mini(subject2, subject_valid, lut_offsets, lut_positions,
             subject2, subject_valid, lut_offsets, lut_positions,
             scan_step=scan_step, lut_word=lut_word, n_scan=n_scan,
             disc_offsets=disc_offsets, mask_starts=mask_starts,
-            mask_ends=mask_ends, chunk=chunk)
+            mask_ends=mask_ends, chunk=chunk, first=first)
     if disc_offsets:
         qs, ss = q_off, s_off
     else:

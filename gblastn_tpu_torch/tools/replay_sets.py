@@ -69,7 +69,7 @@ def batch_cases(batch):
     word = kw["word_size"]
     g_kw = dict(word_size=word, concat_end=concat_end, right_run=runs)
     rows = approx_gate(*g_args, **g_kw)[:4] if word >= 11 else ung[:4]
-    r_args, shift, _flag = replay_inputs(dev, g_args, rows,
+    r_args, shift, _flag = replay_inputs(dev, g_args[6:10], rows,
                                          concat_end=concat_end)
     return g_args, g_kw, r_args, dict(word_size=word, window=dev.window,
                                       right_run=runs, key_shift=shift)

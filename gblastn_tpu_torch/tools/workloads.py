@@ -7,6 +7,9 @@ seed and sizes; ``wobble_reads`` is the third-position wobble of bench.py's
 config 2d) from their own generator; ``make_workload`` is
 ``tools/prof_scan_rate.py``'s (whose genome is bench.py's 4.6 Mb too).
 ``tests/test_torch_import.py`` holds them equal to their originals.
+``offdiag_reads`` and ``below_cutoff_reads`` are the off-diagonal
+workloads of ``tests/test_oracle_parity.py`` (``test_off_diagonal_range``
+and ``test_off_diagonal_below_cutoff_admission``, the same draws).
 """
 from __future__ import annotations
 
@@ -243,3 +246,60 @@ def chroms_workload(chroms=GRCH38_CHROMS, num=GENOME_QUERIES,
         plants.append(st)
         owner.append(k)
     return db, pairs, plants, owner
+
+
+def _rand_seq(rng, n):
+    return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+
+def _oracle_mutate(rng, s, sub_rate, indel_rate):
+    """tests/test_oracle_parity.py's mutate (the same draws)."""
+    out = []
+    for c in s:
+        r = rng.random()
+        if r < indel_rate / 2:
+            continue
+        if r < indel_rate:
+            out.append("ACGT"[rng.integers(0, 4)])
+        if rng.random() < sub_rate:
+            c = "ACGT"[("ACGT".index(c) + 1 + rng.integers(0, 3)) % 4]
+        out.append(c)
+    return "".join(out)
+
+
+def offdiag_reads():
+    """test_off_diagonal_range's workload: a 50 kb genome, six 600-base
+    reads of it with 5% substitutions and 1% indels and two exact
+    400-base reads (double words), as (genome, [(name, "", sequence)])."""
+    genome = _rand_seq(np.random.default_rng(1234), 50000)
+    rng = np.random.default_rng(904)
+    reads = []
+    for i in range(6):
+        st = int(rng.integers(0, len(genome) - 900))
+        reads.append((f"od{i}", "", _oracle_mutate(
+            rng, genome[st: st + 600], 0.05, 0.01)))
+    for i in range(2):
+        st = int(rng.integers(0, len(genome) - 600))
+        reads.append((f"ox{i}", "", genome[st: st + 400]))
+    return genome, reads
+
+
+def below_cutoff_reads():
+    """test_off_diagonal_below_cutoff_admission's workload: ten 57-base
+    reads, each a 56-base piece of a 50 kb genome with one base inserted
+    at 28 and four substitutions, so that each read's ungapped halves lie
+    on neighbouring diagonals and only the off-diagonal probe admits them
+    (blastn, window 40, no dust, e-value 20), as (genome, [(name, "",
+    sequence)])."""
+    rng = np.random.default_rng(11)
+    genome = _rand_seq(rng, 50000)
+    reads = []
+    for i in range(10):
+        st = int(rng.integers(0, len(genome) - 100))
+        frag = list(genome[st: st + 56])
+        frag.insert(28, "ACGT"[int(rng.integers(0, 4))])
+        for pp in (8, 20, 36, 48):
+            frag[pp] = "ACGT"[("ACGT".index(frag[pp]) + 1
+                               + int(rng.integers(0, 3))) % 4]
+        reads.append((f"sb{i}", "", "".join(frag)))
+    return genome, reads

@@ -860,3 +860,137 @@ def test_resident_database_too_large_raises():
     check_fits(room - SEARCH_WORK_BYTES, dev)
     with pytest.raises(MemoryError):
         check_fits(room - SEARCH_WORK_BYTES + 1, dev)
+
+
+def _offdiag_batch(dev, task, window=40, scan_range=4, **kw):
+    """tests/test_oracle_parity.py's off-diagonal workload
+    (tools.workloads.offdiag_reads: eight reads of a 50 kb genome, two
+    of them exact) as one batch on ``dev``."""
+    from gblastn_tpu_torch import FastaRecord, SequenceDB
+    from gblastn_tpu_torch.engine.search import setup_batch
+    from gblastn_tpu_torch.params.options import options_for_task
+    from gblastn_tpu_torch.tools.workloads import offdiag_reads
+
+    genome, reads = offdiag_reads()
+    db = SequenceDB.from_records([FastaRecord("chr1", "", genome)])
+    opts = options_for_task(task, evalue=1e-3, window_size=window,
+                            off_diagonal_range=scan_range, **kw)
+    return setup_batch([FastaRecord(*r) for r in reads], db, opts, dev)
+
+
+@pytest.mark.cuda
+def test_off_diagonal_device_path_equals_host_finish():
+    """-off_diagonal_range on the card: run_seeding (scan, K1, RR where it
+    probes and G on the card, no sort and no R; the host replay on the
+    rows of one fetch) equals the host finish on K1's rows, field by
+    field, and the CPU's run_seeding; blastn, megablast (RR probes) and
+    two-template dc-megablast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.engine import seeding as es
+    from gblastn_tpu_torch.ops import replay as rp
+
+    for task, kw in (("blastn", {}), ("megablast", {}),
+                     ("dc-megablast",
+                      {"template_type": "coding_and_optimal"})):
+        got = {}
+        for name in ("cuda:0", "cpu"):
+            batch = _offdiag_batch(torch.device(name), task, **kw)
+            before = rp.diag_replay.launches
+            got[name] = es.run_seeding(batch.seed_dev, **batch.seed_kw)
+            assert rp.diag_replay.launches == before        # no R
+        kw_b, okw = batch.seed_kw, batch.oracle_kw
+        ctx, k1_args, _n = es.ungapped_inputs(batch.seed_dev, **kw_b)
+        ung = ungapped_extend_window(*k1_args)
+        runs = np.zeros(k1_args[3].numel(), np.int32)
+        if es.probes_double_words(batch.seed_dev, kw_b):
+            res = batch.seed_dev.resident
+            oid = torch.searchsorted(res.starts, k1_args[4], right=True) - 1
+            runs = rp.right_run(batch.seed_dev.query_nib, res.subject_w,
+                                res.ends, k1_args[3], k1_args[4],
+                                oid.to(torch.int32),
+                                word_size=kw_b["word_size"]).numpy()
+        n_ctx = len(kw_b["x_dropoffs"])
+        want = es._finish_init_hits(
+            *(t.numpy() for t in (k1_args[3], k1_args[4], ctx, *ung[:4])),
+            okw["word_cutoffs"], okw["subject_starts"], kw_b["word_size"],
+            concat_qlen=int(kw_b["context_offsets"][n_ctx]) - 2,
+            approx_ctx=okw["approx_ctx"], window_size=40, right_run=runs,
+            scan_range=4)
+        assert len(want) > 0
+        for field in ("q_off", "s_off", "q_start", "s_start", "length",
+                      "score", "context", "oid"):
+            for h in got.values():
+                np.testing.assert_array_equal(getattr(h, field),
+                                              getattr(want, field))
+
+
+@pytest.mark.cuda
+def test_streamed_seeding_equals_resident_on_the_card(monkeypatch):
+    """A database streamed through the card in blocks of 2048 bases
+    (GBLASTN_TPU_STREAM=1) gives the resident path's InitHits on the card,
+    field by field: blastn, megablast with a window (RR probes per
+    block), two-template dc-megablast, blastn with -off_diagonal_range,
+    and a 3 kb exact read across two block edges, whose walks stop at
+    their buffers' edges and are re-extended on the host; K1 and G
+    launch once a block with seeds, R once (none with a scan range,
+    whose replay is the host's); no resident form is uploaded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch.engine import seeding as es
+    from gblastn_tpu_torch.engine.stream import run_seeding_streamed
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.utils.profiling import slog
+
+    from gblastn_tpu_torch import FastaRecord, SequenceDB
+    from gblastn_tpu_torch.engine.search import setup_batch
+    from gblastn_tpu_torch.params.options import options_for_task
+
+    def long_read(dev):
+        rng = np.random.default_rng(3)
+        genome = "".join("ACGT"[i] for i in rng.integers(0, 4, 12000))
+        db = SequenceDB.from_records([FastaRecord("g", "", genome)])
+        return setup_batch([FastaRecord("long", "", genome[3500:6500])],
+                           db, options_for_task("blastn", evalue=1e-3), dev)
+
+    dev = torch.device("cuda:0")
+    escalated = {}
+    for name, make in (
+            ("blastn", lambda d: _offdiag_batch(d, "blastn", window=0,
+                                                scan_range=0)),
+            ("megablast", lambda d: _offdiag_batch(d, "megablast")),
+            ("dc-megablast", lambda d: _offdiag_batch(
+                d, "dc-megablast", template_type="coding_and_optimal")),
+            ("off-diagonal", lambda d: _offdiag_batch(d, "blastn")),
+            ("long read", long_read)):
+        for var in ("GBLASTN_TPU_STREAM", "GBLASTN_TPU_BLOCK_BASES",
+                    "GBLASTN_TPU_BLOCK_HALO"):
+            monkeypatch.delenv(var, raising=False)
+        ref = make(dev)
+        assert ref.stream is None
+        want = es.run_seeding(ref.seed_dev, **ref.seed_kw)
+        monkeypatch.setenv("GBLASTN_TPU_STREAM", "1")
+        monkeypatch.setenv("GBLASTN_TPU_BLOCK_BASES", "2048")
+        monkeypatch.setenv("GBLASTN_TPU_BLOCK_HALO", "256")
+        b = make(dev)
+        assert b.stream is not None and b.seed_dev.resident is None
+        slog.reset()
+        k1_before = ungapped_extend_window.launches
+        g_before = rp.approx_gate.launches
+        r_before = rp.diag_replay.launches
+        got = run_seeding_streamed(b.stream, b.seed_dev, **b.seed_kw)
+        blocks = int(slog.values["seeding.stream_blocks"])
+        escalated[name] = int(slog.values["seeding.stream_escalated"])
+        assert blocks >= 5
+        n_k1 = ungapped_extend_window.launches - k1_before
+        assert 0 < n_k1 <= blocks
+        assert rp.approx_gate.launches - g_before == n_k1
+        assert rp.diag_replay.launches - r_before == (
+            0 if b.seed_kw["scan_range"] else 1)
+        assert len(want) > 0
+        for field in ("q_off", "s_off", "q_start", "s_start", "length",
+                      "score", "context", "oid"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
+        assert not hasattr(b.stream.db, "_torch_resident")
+    assert escalated["long read"] > 0, escalated

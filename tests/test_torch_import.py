@@ -1,6 +1,7 @@
-"""gblastn_tpu_torch imports and searches with ``jax``, ``gblastn_tpu``,
-``bench`` and ``chip_smoke`` blocked, and asking for a CUDA device without
-a card raises instead of falling back."""
+"""gblastn_tpu_torch imports and searches (the off-diagonal replay and a
+streamed database among them) with ``jax``, ``gblastn_tpu``, ``bench``
+and ``chip_smoke`` blocked, and asking for a CUDA device without a card
+raises instead of falling back."""
 from __future__ import annotations
 
 import os
@@ -45,6 +46,27 @@ for options in (gblastn_tpu_torch.megablast_options(),
     spans = [(q.query_index, l.hsps[0].s_off, l.hsps[0].s_end)
              for q in res.queries for l in q.hsplists]
     assert spans == [(0, 1000, 1300), (1, 5000, 5250)], spans
+
+# two-hit seeding with -off_diagonal_range, and the database streamed in
+# blocks (engine.stream)
+res = gblastn_tpu_torch.search(
+    reads, db, gblastn_tpu_torch.blastn_options(window_size=40,
+                                                off_diagonal_range=4),
+    device="cpu")
+assert [(q.query_index, l.hsps[0].s_off) for q in res.queries
+        for l in q.hsplists] == [(0, 1000), (1, 5000)]
+os.environ.update(GBLASTN_TPU_STREAM="1", GBLASTN_TPU_BLOCK_BASES="2048",
+                  GBLASTN_TPU_BLOCK_HALO="256")
+sdb = gblastn_tpu_torch.SequenceDB.from_records([FastaRecord("g", "", genome)])
+res = gblastn_tpu_torch.search(reads, sdb, gblastn_tpu_torch.blastn_options(),
+                               device="cpu")
+assert [(q.query_index, l.hsps[0].s_off, l.hsps[0].s_end)
+        for q in res.queries for l in q.hsplists] == [(0, 1000, 1300),
+                                                       (1, 5000, 5250)]
+assert not hasattr(sdb, "_torch_resident")
+for name in ("GBLASTN_TPU_STREAM", "GBLASTN_TPU_BLOCK_BASES",
+             "GBLASTN_TPU_BLOCK_HALO"):
+    del os.environ[name]
 
 # the pipelined mode and the repeat filter's module
 from gblastn_tpu_torch.engine.pipeline import run_pipelined_search
@@ -196,8 +218,9 @@ def test_sources_never_import_jax():
     assert len(files) > 50
     # the profilers are scanned too
     assert REPO / "gblastn_tpu_torch" / "tools" / "prof_scan_parts.py" in files
-    # and so are the pipelined mode and the repeat filter
-    for mod in ("engine/pipeline.py", "masking/repeats.py"):
+    # and so are the pipelined mode, the repeat filter and the stream
+    for mod in ("engine/pipeline.py", "masking/repeats.py",
+                "engine/stream.py"):
         assert REPO / "gblastn_tpu_torch" / mod in files, mod
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(), 1):

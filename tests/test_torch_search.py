@@ -231,17 +231,14 @@ def test_cli_outfmt6_bytes_match_jax(workload, blastn_workload, tmp_path,
 
 
 def test_outside_the_slice_refuses(workload, monkeypatch):
-    """Only two-hit seeding with -off_diagonal_range (item 10) and
-    sharding (item 14) stay outside the port; -use_index and the database
-    masks run (tests/test_torch_dbindex.py, test_torch_dbmask.py)."""
+    """Only sharding (item 14) stays outside the port; two-hit seeding
+    with -off_diagonal_range (tests/test_torch_offdiag.py), -use_index
+    and the database masks run (tests/test_torch_dbindex.py,
+    test_torch_dbmask.py)."""
     db, reads = workload["db"], workload["reads"]
-    for options, item in ((blastn_options(window_size=40,
-                                          off_diagonal_range=2), 10),
-                          (options_for_task("dc-megablast",
-                                            off_diagonal_range=1), 10)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            torch_search(reads[:1], db, options, device="cpu")
+    for options in (blastn_options(window_size=40, off_diagonal_range=2),
+                    options_for_task("dc-megablast", off_diagonal_range=1)):
+        assert torch_search(reads[:1], db, options, device="cpu").queries
     monkeypatch.setenv("GBLASTN_TPU_SHARDS", "2")
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1 item 14"):
