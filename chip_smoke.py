@@ -114,6 +114,17 @@ after:
    its InitHits equal 3f's resident ones (held to the host finish) field
    by field; the launches of K1, G and R, the escalated seeds, the peak
    device memory and the time printed;
+3l. sharding (parallel.dist) at GBLASTN_TPU_SHARDS=4, every shard on the
+   one card: configs 1 and 2 through the CLI (bytes equal to the
+   unsharded runs; K1 and G once a shard a batch, R once a batch, no K2;
+   the shards uploaded by the first batch only), 1w and 2d
+   (run_seeding_sharded's InitHits equal to the resident run_seeding's,
+   search() equal to the unsharded search()), config 1 with six 10 kb
+   reads across the three shard boundaries through search() (walks
+   escalated, bytes equal), two CLI processes over gloo on localhost on
+   cuda:0 (each rank's bytes equal, K1 and G twice a rank, R once), and
+   the 300 Mb batch (HSPs equal to 2's, each shard's bytes, cold and
+   warm times, no upload in the warm batch, peak device memory);
 4. the scan profiler (gblastn_tpu_torch.tools.prof_scan_parts) in full,
    the path of the table gather P1-P3, which holds the gather bit-equal
    to its plain version and tab[idx] at the shapes of P1, P2 and P3 (and
@@ -2347,6 +2358,239 @@ def main() -> int:
           + "; ".join(st_notes) + f"; bytes equal to the resident cuda and "
           f"the cpu runs; phase {time.time() - t_st:.1f} s  [{card}]")
 
+    # the -outfmt 6 rendering of a megablast search() result over ``tdb``
+    from gblastn_tpu_torch.format.render import ResultRenderer
+
+    def tabular(result, tdb):
+        import io
+
+        buf = io.StringIO()
+        rr = ResultRenderer(6, None, buf, tdb, options, dbname="db",
+                            task="megablast")
+        rr.emit(result)
+        rr.finalize()
+        return buf.getvalue()
+
+    # 6m. sharding (ROADMAP item 14) at GBLASTN_TPU_SHARDS=4, every shard
+    # on the one card: (a) configs 1 and 2 through the CLI, bytes equal to
+    # the unsharded cuda runs of phases 5 and 6 (which equal the cpu
+    # bytes), K1 and G 4 times a batch, R once, K2 never, and the shards
+    # uploaded by the first batch only; (b) 1w (RR on every shard) and 2d:
+    # run_seeding_sharded's InitHits equal the resident run_seeding's, and
+    # search() gives the unsharded HSPs; (c) config 1 with six 10 kb exact
+    # reads planted across the three shard boundaries through search():
+    # walks escalated, bytes equal; (d) two CLI processes over gloo on
+    # localhost, both on cuda:0, on config 1: each rank's bytes equal the
+    # unsharded ones, K1 and G twice a rank, R once. The 300 Mb batch at 4
+    # shards follows phase 7's resident one.
+    from gblastn_tpu_torch.parallel.dist import run_seeding_sharded
+
+    t_sh = time.time()
+    shard4 = {"GBLASTN_TPU_SHARDS": "4"}
+
+    def shard_run(args, out):
+        os.environ.update(shard4)
+        try:
+            got = card_run(args, out)
+        finally:
+            os.environ.pop("GBLASTN_TPU_SHARDS")
+        spans = got[3]
+        check("device.seeding.sharded" in spans
+              and "setup.subject_upload" not in spans
+              and "device.seeding.stream" not in spans,
+              f"{out}: the batch was not sharded, or uploaded the resident "
+              "form, or streamed")
+        return got + (slog.counts.get("setup.shard_upload", 0),)
+
+    sh_notes = []
+    for tag, args, nb in (
+            ("config1", c1_args + ["-db", str(work / "db")], 1),
+            ("config2", ["blastn", "-task", "blastn", "-evalue", "1e-5",
+                         "-query", str(work / "config2.fa"), "-db",
+                         str(work / "db"), "-outfmt", "6",
+                         "-max_target_seqs", "10"], n_batches)):
+        out, launch, t_cuda, spans, uploads = shard_run(
+            args, work / f"{tag}_shard.tsv")
+        check(out == (work / f"{tag}_cuda.tsv").read_bytes(),
+              f"sharded {tag}: the bytes differ from the unsharded run's")
+        check(launch[0] == launch[2] == 4 * nb and launch[3] == nb
+              and launch[1] == launch[4] == 0,
+              f"sharded {tag}: launches K1/K2/G/R/RR {launch} over {nb} "
+              "batches of 4 shards")
+        check(uploads == 4, f"sharded {tag}: {uploads} shard uploads over "
+                            f"{nb} batches (4 expected: the first batch's)")
+        new_paths[f"{tag}_shard_cli"] = launch
+        sh_notes.append(
+            f"{tag} {out.count(b'\n')} lines over {nb} batches, K1 "
+            f"{launch[0]} G {launch[2]} R {launch[3]} K2 {launch[1]}, "
+            f"{uploads} shard uploads, cuda {t_cuda:.2f} s "
+            f"(device.seeding.sharded "
+            f"{spans['device.seeding.sharded'] * 1e3:.1f} ms, "
+            f"setup.shard_upload {spans['setup.shard_upload'] * 1e3:.1f} ms)")
+    print("sharded CLI at 4 shards: " + "; ".join(sh_notes)
+          + f"; bytes equal to the unsharded cuda runs  [{card}]")
+
+    for tag, (rs, _st, _ql) in (("config1w", two_hit["config1w"]),
+                                ("config2d", two_hit["config2d"])):
+        opts = config_options(tag)
+        rb = setup_batch(rs, db, opts, dev)
+        want_i = run_seeding(rb.seed_dev, **rb.seed_kw)
+        del rb
+        want_h = hsp_rows(search(rs, db, opts, device=dev))
+        os.environ.update(shard4)
+        try:
+            b = setup_batch(rs, db, opts, dev)
+            check(b.shards is not None and all(
+                res_k.device == dev for res_k, _i in b.shards.forms.values()),
+                f"{tag}: the batch was not sharded on the card")
+            guard(True)
+            counts_zero()
+            try:
+                got_i = run_seeding_sharded(b.shards, b.seed_dev, **b.seed_kw)
+                launch = (k1.launches, k2.launches, kg.launches,
+                          kr.launches, krr.launches)
+                counts_zero()
+                slog.reset()
+                got_h = hsp_rows(search(rs, db, opts, device=dev))
+                s_launch = (k1.launches, k2.launches, kg.launches,
+                            kr.launches, krr.launches)
+            finally:
+                guard(False)
+        finally:
+            os.environ.pop("GBLASTN_TPU_SHARDS")
+        same_init(got_i, want_i, f"{tag} at 4 shards against the resident "
+                                 "run_seeding")
+        check(got_h == want_h, f"{tag} at 4 shards: search() differs from "
+                               "the unsharded search()")
+        rr_want = 4 if tag == "config1w" else 0
+        check(launch == (4, 0, 4, 1, rr_want) and s_launch == launch,
+              f"{tag} at 4 shards: launches K1/K2/G/R/RR {launch} "
+              f"(run_seeding_sharded), {s_launch} (search())")
+        new_paths[f"{tag}_shard_search"] = s_launch
+        print(f"{tag} at 4 shards: {len(got_i)} InitHits equal to the "
+              f"resident run_seeding's, {len(got_h)} HSPs equal to the "
+              f"unsharded search()'s; launches K1 {launch[0]} G {launch[2]} "
+              f"R {launch[3]} RR {launch[4]}  [{card}]")
+        del b
+
+    # (c) six 10 kb exact reads across the three boundaries of config 1's
+    # shard plan, two a boundary (one from each side, one of them on the
+    # minus strand)
+    os.environ.update(shard4)
+    try:
+        plan = setup_batch(reads, db, options, dev).shards.blocks.plan
+        comp = str.maketrans("ACGT", "TGCA")
+        edge_reads = []
+        for k in (1, 2, 3):
+            b0 = k * plan.B
+            edge_reads.append(FastaRecord(f"edge{k}a", "",
+                                          genome[b0 - 6000: b0 + 4000]))
+            edge_reads.append(FastaRecord(
+                f"edge{k}b", "",
+                genome[b0 - 4000: b0 + 6000].translate(comp)[::-1]))
+        planted = reads + edge_reads
+        b = setup_batch(planted, db, options, dev)
+        check(b.shards.blocks.plan.B == plan.B,
+              "the planted batch's shard plan moved its boundaries")
+        del b
+        guard(True)
+        counts_zero()
+        slog.reset()
+        t0 = time.time()
+        try:
+            got = search(planted, db, options, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            guard(False)
+        t_planted = time.time() - t0
+        p_launch = (k1.launches, k2.launches, kg.launches, kr.launches,
+                    krr.launches)
+        p_vals, p_spans = dict(slog.values), dict(slog.totals)
+    finally:
+        os.environ.pop("GBLASTN_TPU_SHARDS")
+    want = search(planted, db, options, device=dev)
+    check(tabular(got, db) == tabular(want, db),
+          "config 1 with reads across the shard boundaries: the sharded "
+          "bytes differ from the unsharded ones")
+    n_esc = int(p_vals["seeding.shard_escalated"])
+    check(n_esc > 0, "no walk was escalated across a shard boundary")
+    edge_found = sum(
+        any(h.q_end - h.q_off == 10000 for lst in q.hsplists
+            for h in lst.hsps)
+        for q in got.queries if q.query_index >= len(reads))
+    check(edge_found == 6, f"{edge_found} of the 6 edge reads aligned whole")
+    check(p_launch == (4, 0, 4, 1, 0),
+          f"config 1 with edge reads: launches K1/K2/G/R/RR {p_launch}")
+    new_paths["config1_edges_shard_search"] = p_launch
+    print(f"config 1 with 6 reads across the shard boundaries at "
+          f"{[k * plan.B for k in (1, 2, 3)]} (shards of {plan.B} bases, "
+          f"halo {plan.halo}): bytes equal to the unsharded search's, each "
+          f"edge read one whole HSP, {n_esc} walks escalated "
+          f"({int(p_vals['seeding.shard_gate_edges'])} for G alone), "
+          f"host.shard_escalate "
+          f"{p_spans.get('host.shard_escalate', 0.0) * 1e3:.1f} ms, search "
+          f"{t_planted:.2f} s  [{card}]")
+    del got, want
+
+    # (d) two ranks over gloo on localhost, both on cuda:0
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    rank_prog = (
+        "import json, sys\n"
+        "from gblastn_tpu_torch.cli.main import main\n"
+        "from gblastn_tpu_torch.ops import gapped, replay, ungapped\n"
+        "from gblastn_tpu_torch.utils.profiling import slog\n"
+        "rc = main(sys.argv[1:])\n"
+        "import torch, torch.distributed\n"
+        "print(json.dumps({'rc': rc, 'device': str(torch.cuda.current_device()),"
+        " 'world': torch.distributed.get_world_size(), 'launches': ["
+        "ungapped.ungapped_extend_window.launches,"
+        " gapped.banded_gapped_scores.launches, replay.approx_gate.launches,"
+        " replay.diag_replay.launches, replay.right_run.launches],"
+        " 'escalated': slog.values.get('seeding.shard_escalated', 0),"
+        " 'gather_ms': 1e3 * slog.totals.get('host.shard_gather', 0.0)}))\n")
+    t0 = time.time()
+    env = {**os.environ, "PYTHONPATH": str(REPO), **shard4,
+           "GBLASTN_TPU_COORDINATOR": f"localhost:{port}",
+           "GBLASTN_TPU_NUM_PROCESSES": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", rank_prog] + c1_args
+        + ["-db", str(work / "db"), "-device", "cuda", "-out",
+           str(work / f"config1_rank{r}.tsv")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**env, "GBLASTN_TPU_PROCESS_ID": str(r)}) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    t_ranks = time.time() - t0
+    rank_notes = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                                 f"{se[-2000:]}")
+        rec = json.loads(so.strip().splitlines()[-1])
+        check(rec["rc"] == 0 and rec["world"] == 2 and rec["device"] == "0",
+              f"rank {r}: {rec}")
+        check((work / f"config1_rank{r}.tsv").read_bytes()
+              == (work / "config1_cuda.tsv").read_bytes(),
+              f"rank {r}'s bytes differ from the unsharded run's")
+        launch = tuple(rec["launches"])
+        check(launch == (2, 0, 2, 1, 0),
+              f"rank {r}: launches K1/K2/G/R/RR {launch} (2, 0, 2, 1, 0 "
+              "expected: two shards a rank, one batch)")
+        new_paths[f"config1_rank{r}_cli"] = launch
+        rank_notes.append(f"rank {r} K1 {launch[0]} G {launch[2]} R "
+                          f"{launch[3]}, {int(rec['escalated'])} escalated, "
+                          f"host.shard_gather {rec['gather_ms']:.1f} ms")
+    print("config 1 over two gloo ranks on cuda:0 at 4 shards: each rank's "
+          "bytes equal the unsharded ones; " + "; ".join(rank_notes)
+          + f"; both ranks {t_ranks:.1f} s with start-up; phase "
+          f"{time.time() - t_sh:.1f} s  [{card}]")
+
     del genome, db, reads, reads2, reads2d
 
     # 7. scale: one 500-read batch against a 300 Mb resident genome
@@ -2381,6 +2625,63 @@ def main() -> int:
           f"{len(big_reads)} reads, all loci found, peak device memory "
           f"{peak / 2**30:.2f} GiB  [{card}]")
 
+    # 6m (continued). the 300 Mb batch at 4 shards, all on the card beside
+    # the resident form: HSPs equal to the resident batch's; K1 and G once
+    # a shard, R once, no K2; a cold batch (the shards' upload) and a warm
+    # one (no upload) timed, each shard's resident bytes and the peak
+    # device memory printed
+    want_rows = hsp_rows(res)
+    big_runs = []
+    os.environ.update(shard4)
+    try:
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            guard(True)
+            counts_zero()
+            slog.reset()
+            t0 = time.time()
+            try:
+                got = search(big_reads, big_db, options, device=dev)
+                torch.cuda.synchronize()
+            finally:
+                guard(False)
+            big_runs.append((time.time() - t0, (
+                k1.launches, k2.launches, kg.launches, kr.launches,
+                krr.launches), dict(slog.totals), dict(slog.counts),
+                torch.cuda.max_memory_allocated()))
+            check(hsp_rows(got) == want_rows,
+                  "300 Mb at 4 shards: the HSPs differ from the resident "
+                  "batch's")
+            del got
+    finally:
+        os.environ.pop("GBLASTN_TPU_SHARDS")
+    forms = [v for v in big_db._torch_shards.values()
+             if hasattr(v, "subject_w")]
+    check(len(forms) == 4 and all(f.device == dev for f in forms),
+          f"300 Mb: {len(forms)} shard forms, or a shard off the card")
+    shard_bytes = [nbytes(f.packed, f.subject2, f.valid, f.subject_w,
+                          f.starts, f.ends) for f in forms]
+    del forms
+    for (t_b, launch, spans_b, counts_b, _pk), cold in zip(big_runs,
+                                                           (True, False)):
+        check(launch == (4, 0, 4, 1, 0),
+              f"300 Mb at 4 shards: launches K1/K2/G/R/RR {launch}")
+        check(counts_b.get("setup.shard_upload", 0) == (4 if cold else 0),
+              f"300 Mb at 4 shards: {counts_b.get('setup.shard_upload', 0)} "
+              f"shard uploads in the {'cold' if cold else 'warm'} batch")
+    new_paths["big_shard_search"] = big_runs[0][1]
+    top_b = sorted(big_runs[1][2].items(), key=lambda kv: -kv[1])[:5]
+    print(f"300 Mb at 4 shards: HSPs equal to the resident batch's; each "
+          f"shard's resident bytes {shard_bytes}; search() cold "
+          f"{big_runs[0][0]:.2f} s (setup.shard_upload "
+          f"{big_runs[0][2]['setup.shard_upload'] * 1e3:.1f} ms), warm "
+          f"{big_runs[1][0]:.2f} s, no shard uploaded ("
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in top_b)
+          + f"); peak device memory {big_runs[0][4] / 2**30:.2f} GiB cold, "
+          f"{big_runs[1][4] / 2**30:.2f} warm (the resident form "
+          f"included); launches K1 4 G 4 R 1 K2 0  [{card}]")
+    big_db._torch_shards.clear()
+
     # 7'. config 3s, bench.py bench_config3's streamed leg: the same 500
     # reads against the 300 Mb genome with GBLASTN_TPU_STREAM=1 and the
     # default blocks (3 of 2^27 bases), its resident form dropped first:
@@ -2392,18 +2693,6 @@ def main() -> int:
         run_seeding_streamed,
         stream_bytes,
     )
-    from gblastn_tpu_torch.format.render import ResultRenderer
-
-    def tabular(result, tdb):
-        import io
-
-        buf = io.StringIO()
-        rr = ResultRenderer(6, None, buf, tdb, options, dbname="db",
-                            task="megablast")
-        rr.emit(result)
-        rr.finalize()
-        return buf.getvalue()
-
     want3 = tabular(res, big_db)
     init3, t_host3, _n, _r = host_init(setup_batch(big_reads, big_db,
                                                    options, dev))

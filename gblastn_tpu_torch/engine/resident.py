@@ -85,20 +85,23 @@ def free_bytes(device: torch.device) -> int:
             - torch.cuda.memory_allocated(device))
 
 
-def check_fits(need: int, device: torch.device) -> None:
-    """MemoryError unless ``need`` bytes and the search's working memory
-    (``SEARCH_WORK_BYTES``) fit in the ``free_bytes`` of the CUDA
-    ``device`` (no check on the CPU: the host's allocator answers for
-    itself)."""
+def check_fits(need: int, device: torch.device, *,
+               what: str = "the resident database",
+               instead: str = "a search streams such a database instead "
+                              "(engine.stream)") -> None:
+    """MemoryError unless ``need`` bytes (of ``what``) and the search's
+    working memory (``SEARCH_WORK_BYTES``) fit in the ``free_bytes`` of
+    the CUDA ``device``; the message names both numbers, then
+    ``instead``. No check on the CPU: the host's allocator answers for
+    itself."""
     if device.type != "cuda":
         return
     free = free_bytes(device)
     if need + SEARCH_WORK_BYTES > free:
         raise MemoryError(
-            f"the resident database needs {need} bytes of device memory, "
-            f"and a search {SEARCH_WORK_BYTES} more, and {device} has "
-            f"{free} free; a search streams such a database instead "
-            "(engine.stream)")
+            f"{what} needs {need} bytes of device memory, and a search "
+            f"{SEARCH_WORK_BYTES} more, and {device} has {free} free; "
+            f"{instead}")
 
 
 def resident_from_reference(db: SequenceDB,

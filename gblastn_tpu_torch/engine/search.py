@@ -17,9 +17,11 @@ database's soft and hard masks, over a database held resident on one
 device (int64 subject coordinates throughout) or, where the card cannot
 hold it, streamed through the card in blocks (engine.stream, which
 reads GBLASTN_TPU_STREAM, GBLASTN_TPU_STREAM_THRESHOLD and the block
-variables; a streamed batch skips the gapped filter, which reads the
-resident subject). Multi-device sharding raises NotImplementedError
-naming the ROADMAP item that ports it.
+variables), or sharded over cards and processes with one shard
+resident on each card (parallel.dist, which reads GBLASTN_TPU_SHARDS and
+the process group's variables; a sharded batch never streams). A
+streamed or sharded batch skips the gapped filter, which reads the
+resident subject.
 """
 from __future__ import annotations
 
@@ -70,6 +72,16 @@ from gblastn_tpu_torch.engine.stream import (
 from gblastn_tpu_torch.ops.replay import query_bytes
 from gblastn_tpu_torch.ops.seeding import pack_query_nibbles, scan_span
 from gblastn_tpu_torch.ops.ungapped import make_table64, pack_query
+from gblastn_tpu_torch.parallel.dist import (
+    ShardedDB,
+    batch_cards,
+    init_distributed,
+    process_group,
+    run_seeding_sharded_steps,
+    shard_count,
+    shard_db,
+    shards_requested,
+)
 
 NEG_CLIP = -(1 << 24)
 
@@ -107,31 +119,6 @@ class PrelimResult:
     params: SearchParams
     hitlists: list[HitList]
     masks: list[list[tuple[int, int]]] | None = None
-
-
-def _shards_requested() -> int:
-    """GBLASTN_TPU_SHARDS as the reference reads it: a value that is not
-    a number, the empty one included, is ignored with a note on stderr."""
-    try:
-        return int(os.environ.get("GBLASTN_TPU_SHARDS", "0"))
-    except ValueError:
-        print("gblastn_tpu: ignoring non-numeric GBLASTN_TPU_SHARDS",
-              file=sys.stderr)
-        return 0
-
-
-def _refuse_outside_slice(options: SearchOptions) -> None:
-    """NotImplementedError for every search shape this slice does not
-    port, naming the ROADMAP Queue 1 item that does."""
-    def no(what, item):
-        raise NotImplementedError(
-            f"gblastn_tpu_torch: {what} is not ported yet "
-            f"(ROADMAP Queue 1 item {item})"
-        )
-
-    if _shards_requested() > 1:
-        no("multi-device sharding (GBLASTN_TPU_SHARDS > 1)", 14)
-    # a database the card cannot hold streams (engine.stream.choose)
 
 
 def _warn_once(db, key: str, msg: str) -> None:
@@ -243,8 +230,10 @@ class BatchSetup:
                             # subject_starts, approx_ctx (the keywords of
                             # engine.seeding._finish_init_hits; also
                             # seed_dev.finish_kw)
-    stream: StreamedDB | None = None   # the streamed database, or None:
-                                       # seed_dev.resident holds it
+    stream: StreamedDB | None = None   # the streamed database, or None
+    shards: ShardedDB | None = None    # the sharded database, or None;
+                                       # with neither, seed_dev.resident
+                                       # holds it
 
 
 def setup_batch(
@@ -255,11 +244,15 @@ def setup_batch(
 ) -> BatchSetup:
     """Host setup of one batch (query block, masks, lookup table, derived
     parameters, gate data) and its upload beside the resident database,
-    or, where the database streams (engine.stream.choose), without
-    it."""
+    or, where the database is sharded (parallel.dist: GBLASTN_TPU_SHARDS,
+    a process group, or a bare ``cuda`` on a machine with several cards)
+    or streams (engine.stream.choose), without it."""
+    init_distributed()
     dev = resolve_device(device)
     options.validate()
-    _refuse_outside_slice(options)
+    cards = batch_cards(device, dev)
+    n_shards = shard_count(shards_requested(), world=process_group()[0],
+                           cards=len(cards))
     with slog.time("setup.query_block"):
         qblock = build_query_block(records, options.strand)
     ctx_offsets = qblock.context_offsets()
@@ -423,12 +416,19 @@ def setup_batch(
     }
 
     m16 = device_matrix16(options.reward, options.penalty)
-    stream = choose(
-        db, dev, span=scan_span(lut.lut_word_size, lut.disc_offsets),
-        scan_step=lut.scan_step, mask_intervals=db_mask_ivs,
-        db_index=db_index, matrix16=m16, query=qbuf)
+    span = scan_span(lut.lut_word_size, lut.disc_offsets)
+    stream = shards = None
+    if n_shards > 1:
+        shards = shard_db(db, dev, n_shards, cards=cards,
+                          span=span, scan_step=lut.scan_step,
+                          mask_intervals=db_mask_ivs, db_index=db_index,
+                          matrix16=m16, query=qbuf)
+    else:
+        stream = choose(db, dev, span=span, scan_step=lut.scan_step,
+                        mask_intervals=db_mask_ivs, db_index=db_index,
+                        matrix16=m16, query=qbuf)
     resident = None
-    if stream is None:
+    if stream is None and shards is None:
         with slog.time("setup.subject_upload"):
             resident = resident_from_reference(db, dev)
     oracle_kw = dict(word_cutoffs=word_cutoffs, subject_starts=db.starts,
@@ -452,7 +452,7 @@ def setup_batch(
             allowed = np.zeros(len(qbuf), bool)
             allowed[lut.positions] = True
             q_allowed = torch.from_numpy(allowed).to(dev)
-            if stream is None:   # a streamed block takes its own slice
+            if resident is not None:   # a block or shard takes its slice
                 offsets, positions = _index_on_device(db, db_index, dev)
         mask_starts = mask_ends = None
         if db_mask_ivs is not None and len(db_mask_ivs):
@@ -491,7 +491,7 @@ def setup_batch(
         scan_range=options.off_diagonal_range if options.window_size else 0,
     )
     return BatchSetup(qblock, params, masks, seed_dev, seed_kw, q_dev,
-                      oracle_kw, stream)
+                      oracle_kw, stream, shards)
 
 
 def _build_gapped_filter(batch: BatchSetup) -> DeviceGappedData | None:
@@ -556,7 +556,10 @@ def prelim_search_steps(
     batch = setup_batch(records, db, options, device)
     qblock, params, masks = batch.qblock, batch.params, batch.masks
     with slog.time("device.seeding"):
-        if batch.stream is not None:
+        if batch.shards is not None:
+            sgen = run_seeding_sharded_steps(batch.shards, batch.seed_dev,
+                                             **batch.seed_kw)
+        elif batch.stream is not None:
             sgen = run_seeding_streamed_steps(batch.stream, batch.seed_dev,
                                               **batch.seed_kw)
         else:
@@ -568,12 +571,12 @@ def prelim_search_steps(
     # the JAX package's engage rule (gblastn_tpu/engine/search.py:930):
     # the filter runs from GBLASTN_TPU_GAPPED_FILTER_MIN candidates up,
     # or always when GBLASTN_TPU_GAPPED_FILTER=1; it reads the resident
-    # subject, so a streamed batch does not run it (an exact rejection
-    # filter: no result changes)
+    # subject, so a streamed or sharded batch does not run it (an exact
+    # rejection filter: no result changes)
     filter_min = int(os.environ.get("GBLASTN_TPU_GAPPED_FILTER_MIN",
                                     "2000"))
     device_gapped = None
-    if batch.stream is None and (
+    if batch.seed_dev.resident is not None and (
             len(init) >= filter_min
             or os.environ.get("GBLASTN_TPU_GAPPED_FILTER") == "1"):
         device_gapped = _build_gapped_filter(batch)

@@ -37,7 +37,8 @@ saved ones, as on the resident path; with a scan range the host replays
 every seed (``host_finish``), as it does there. The device gapped
 filter K2 reads the resident subject, so a streamed batch does not run
 it; K2 is an exact rejection filter, so leaving it out changes no
-result.
+result. The sharded path (parallel.dist) runs the same block launch,
+escalation and finish on shards that stay resident on their cards.
 
 ``choose`` decides where a batch's database lives: ``GBLASTN_TPU_STREAM
 =1`` forces streaming, ``=0`` forbids it, ``GBLASTN_TPU_STREAM_THRESHOLD``
@@ -202,14 +203,17 @@ class _BlockPlan:
     overlaps its buffer."""
 
     def __init__(self, db, *, block_bases: int, halo: int, span: int,
-                 scan_step: int, mask_intervals=None):
+                 scan_step: int, mask_intervals=None,
+                 n_blocks: int | None = None):
         align = math.lcm(1024, scan_step)
         self.B = max(block_bases - block_bases % align, align)
         self.halo = max(halo - halo % 4, 256)
         self.s_buf = self.B + 2 * self.halo
         s_pad = db.padded_length
         self.npos = s_pad - span + 1
-        self.n_blocks = (s_pad + self.B - 1) // self.B
+        # ``n_blocks`` past the database's last block adds blocks with no
+        # work (a shard plan keeps its shard count)
+        self.n_blocks = max(n_blocks or 0, (s_pad + self.B - 1) // self.B)
         self.scan_step = scan_step
         starts = np.asarray(db.starts, np.int64)
         ends = starts + np.asarray(db.lengths, np.int64)
@@ -487,36 +491,56 @@ def _edge_walks(k1_args, ung, g_args, g_flags, lo, hi, *, s_buf: int,
     return edge | (g_edge.to(torch.uint8) << 1)
 
 
-def _launch_block(sdb: StreamedDB, dev: SeedingDeviceData, cache: dict,
-                  k: int, scan_kw: dict):
-    """Block k on the card: its forms from the packed bytes, the scan of
-    its own positions (or its index slice), the mini-extension, K1, and
-    RR and G (``gate_rows``; G's walks inside the buffer). Returns
-    (seeds a template, columns, head) or None where the block has no
-    seed: the seeds' columns in global coordinates (q, ctx, oid, int64
-    ss; the extension after G: uq, int64 us, ulen, usc; RR's runs where
-    they ran; ``esc``, the walks at a buffer edge, ``_edge_walks``) and
-    ``gate_rows``' head. Waits on the card only in the scan."""
-    plan = sdb.plan
-    g0, a, _b = plan.slices[k]
-    device = sdb.device
-    (packed,) = _on_card(sdb, cache, ("packed", k),
-                         lambda: (plan.packed(sdb.db, k),))
+def block_resident(plan: _BlockPlan, k: int,
+                   packed: torch.Tensor) -> ResidentDB:
+    """Block k's resident form on ``packed``'s device, from its packed
+    bytes with the resident path's helpers: codes, validity and words,
+    and its subjects' block-local bounds (clipped to +-CLIP)."""
+    device = packed.device
     lo, hi = (torch.from_numpy(b).to(device) for b in plan.bounds(k))
     subject2 = unpack_2na(packed)
-    res = ResidentDB(device=device, packed=packed, subject2=subject2,
-                     valid=valid_from_intervals(subject2.shape[0], lo, hi),
-                     subject_w=pack_subject_words(packed), starts=lo,
-                     ends=hi, longest=plan.s_buf)
+    return ResidentDB(device=device, packed=packed, subject2=subject2,
+                      valid=valid_from_intervals(subject2.shape[0], lo, hi),
+                      subject_w=pack_subject_words(packed), starts=lo,
+                      ends=hi, longest=plan.s_buf)
+
+
+def _stream_forms(sdb: StreamedDB, cache: dict, k: int):
+    """Block k's forms on the stream's card: (its ResidentDB, its index
+    slice's words and local positions or None), the packed bytes and the
+    index slice from the device cache or uploaded."""
+    (packed,) = _on_card(sdb, cache, ("packed", k),
+                         lambda: (sdb.plan.packed(sdb.db, k),))
+    index = None
+    if sdb.index_slices is not None:
+        index = _on_card(sdb, cache, ("index", sdb.index_key, k),
+                         lambda: sdb.index_slices[k])
+    return block_resident(sdb.plan, k, packed), index
+
+
+def launch_block(plan: _BlockPlan, k: int, res: ResidentDB, index,
+                 dev: SeedingDeviceData, scan_kw: dict):
+    """Block k on its forms' device (``res``, and ``index``, its index
+    slice's words and local positions, or None; ``dev`` on the same
+    device): the scan of its own positions (or its index slice), the
+    mini-extension, K1, and RR and G (``gate_rows``; G's walks inside the
+    buffer). Returns (item, raw seeds): the item is (seeds a template,
+    columns, head), or None where the block has no seed: the seeds'
+    columns in global coordinates (q, ctx, oid, int64 ss; the extension
+    after G: uq, int64 us, ulen, usc; RR's runs where they ran; ``esc``,
+    the walks at a buffer edge, ``_edge_walks``) and ``gate_rows``' head.
+    Waits on the card only in the scan."""
+    g0, a, _b = plan.slices[k]
+    device = res.device
+    lo, hi = res.starts, res.ends
     blk = {"resident": res}
     if plan.mask_slices is not None:
         m0, m1 = plan.mask_slices[k]
         blk["mask_starts"], blk["mask_ends"] = (
             (dev.mask_starts[m0:m1] - g0, dev.mask_ends[m0:m1] - g0)
             if m1 > m0 else (None, None))
-    if sdb.index_slices is not None:
-        words, pos = _on_card(sdb, cache, ("index", sdb.index_key, k),
-                              lambda: sdb.index_slices[k])
+    if index is not None:
+        words, pos = index
         table = 1 << (2 * scan_kw["lut_word"])
         offsets = torch.zeros(table + 1, dtype=torch.int64, device=device)
         offsets[1:] = torch.cumsum(torch.bincount(words, minlength=table), 0)
@@ -526,9 +550,9 @@ def _launch_block(sdb: StreamedDB, dev: SeedingDeviceData, cache: dict,
     parts = scan_parts(bdev, first=plan.halo, n_scan=plan.n_scan(k),
                        **scan_kw)
     counts = [int(p[0].numel()) for p in parts]
-    slog.diagnostics.lookup_hits += sum(p[6] for p in parts)
+    n_raw = sum(p[6] for p in parts)
     if not sum(counts):
-        return None
+        return None, n_raw
     ctx, k1_args, _n = join_parts(bdev, parts)
     ung = ungapped_extend_window(*k1_args)
     s_buf = plan.s_buf
@@ -545,7 +569,7 @@ def _launch_block(sdb: StreamedDB, dev: SeedingDeviceData, cache: dict,
                                 s_buf=s_buf, concat_end=concat_end))
     if runs is not None:
         cols["runs"] = runs
-    return counts, cols, head
+    return (counts, cols, head), n_raw
 
 
 def run_seeding_streamed(sdb: StreamedDB, dev: SeedingDeviceData,
@@ -575,7 +599,9 @@ def run_seeding_streamed_steps(sdb: StreamedDB, dev: SeedingDeviceData,
     got = []
 
     def launch(k):
-        item = _launch_block(sdb, dev, cache, k, scan_kw)
+        res, index = _stream_forms(sdb, cache, k)
+        item, n_raw = launch_block(plan, k, res, index, dev, scan_kw)
+        slog.diagnostics.lookup_hits += n_raw
         if item is not None:
             got.append(item)
 
@@ -587,18 +613,19 @@ def run_seeding_streamed_steps(sdb: StreamedDB, dev: SeedingDeviceData,
         for k in blocks[1:]:
             launch(k)
     slog.add_value("seeding.stream_blocks", len(blocks))
-    return _finish_streamed(sdb, dev, got, scan_kw)
+    return finish_blocks(sdb, dev, got, scan_kw)
 
 
-def _escalate(sdb: StreamedDB, dev: SeedingDeviceData, col: dict,
-              head: list, scan_kw: dict) -> None:
+def escalate(sdb: StreamedDB, dev: SeedingDeviceData, col: dict,
+             head: list, scan_kw: dict, tag: str = "stream") -> None:
     """The walks at a buffer edge (``col["esc"]``), exactly on the host:
     one fetch of their seeds with K1's and G's range flags (which raise
     here, before a row is used), K1's extension off the packed database
     with the true budgets (``ungapped_extend_host``), then G
     (``host_gate``, for words of 11 and up), and the results written
-    back into ``col``. Counted in the ``seeding.stream_escalated``
-    value, G's edges alone in ``seeding.stream_gate_edges``."""
+    back into ``col``. Timed in ``host.<tag>_escalate`` and counted in
+    the ``seeding.<tag>_escalated`` value, G's edges alone in
+    ``seeding.<tag>_gate_edges`` (``tag``: stream or shard)."""
     idx = torch.nonzero(col["esc"]).squeeze(1)
     picks = [col["q"], col["ctx"], col["oid"], col["esc"].to(torch.int32)]
     if "runs" in col:
@@ -610,18 +637,18 @@ def _escalate(sdb: StreamedDB, dev: SeedingDeviceData, col: dict,
     check_flags(out[0:1])
     check_gate_flags(out[1:2])
     n = idx.numel()
-    slog.add_value("seeding.stream_escalated", n)
+    slog.add_value(f"seeding.{tag}_escalated", n)
     if not n:
-        slog.add_value("seeding.stream_gate_edges", 0)
+        slog.add_value(f"seeding.{tag}_gate_edges", 0)
         return
     cols = out[2:].reshape(-1, n)
-    slog.add_value("seeding.stream_gate_edges", int((cols[3] == 2).sum()))
+    slog.add_value(f"seeding.{tag}_gate_edges", int((cols[3] == 2).sum()))
     q, ctx, oid = (c.astype(np.int64) for c in cols[:3])
     runs = cols[4] if "runs" in col else None
     ss = np.stack(cols[-2:], 1).view(np.int64)[:, 0]
     plan = sdb.plan
     word_size = scan_kw["word_size"]
-    with slog.time("host.stream_escalate"):
+    with slog.time(f"host.{tag}_escalate"):
         rows = ungapped_extend_host(
             sdb.query, sdb.matrix16, sdb.db.packed, plan.starts[oid],
             plan.ends[oid], q, ss, np.asarray(scan_kw["x_dropoffs"])[ctx])
@@ -637,29 +664,49 @@ def _escalate(sdb: StreamedDB, dev: SeedingDeviceData, col: dict,
             col[name].device, col[name].dtype)
 
 
-def _finish_streamed(sdb: StreamedDB, dev: SeedingDeviceData, got: list,
-                     scan_kw: dict) -> InitHits:
+def join_blocks(got: list) -> tuple[dict, list]:
+    """The blocks' items (``launch_block``'s, on one device, in block
+    order) joined in the resident path's order, template then block:
+    (columns, head), the head's gated seeds summed and range flags
+    taken at their most."""
+    n_tmpl = len(got[0][0])
+    pieces = [(cols, sum(counts[:t]), counts[t])
+              for t in range(n_tmpl) for counts, cols, _h in got]
+    col = {name: torch.cat([c[name][a: a + n] for c, a, n in pieces])
+           for name in got[0][1]}
+    heads = torch.stack([torch.stack(h) for _c, _cols, h in got])
+    return col, [heads[:, 0].sum().to(torch.int32), heads[:, 1].amax(),
+                 heads[:, 2].amax()]
+
+
+def _no_hits() -> InitHits:
+    z = np.zeros(0, dtype=np.int32)
+    return InitHits(z, z, z, z, z, z, z, z)
+
+
+def finish_blocks(sdb: StreamedDB, dev: SeedingDeviceData, got: list,
+                     scan_kw: dict, tag: str = "stream") -> InitHits:
     """The stream's finish: the blocks' columns joined on the card in the
-    resident path's order (template, then block), the walks at a buffer
-    edge re-extended on the host (``_escalate``), then the resident
-    path's finish over the whole database's seeds: the sort and R on the
-    card and one fetch of the saved seeds (``replay_rows``,
+    resident path's order (``join_blocks``), the walks at a buffer edge
+    re-extended on the host (``escalate``), then ``finish_joined``."""
+    if not got:
+        return _no_hits()
+    with slog.time("device.seeding.finish"):
+        col, head = join_blocks(got)
+    slog.diagnostics.init_extends += int(col["q"].numel())
+    escalate(sdb, dev, col, head, scan_kw, tag)
+    return finish_joined(sdb, dev, col, head, scan_kw)
+
+
+def finish_joined(sdb: StreamedDB, dev: SeedingDeviceData, col: dict,
+                  head: list, scan_kw: dict) -> InitHits:
+    """The resident path's finish over the whole database's seeds, joined
+    and escalated (``col``, ``head``; on the batch's device): the sort and
+    R on the card and one fetch of the saved seeds (``replay_rows``,
     ``fetch_saved``), or, with a scan range, one fetch of every seed's
     rows for the host's off-diagonal replay (``host_finish``)."""
-    if not got:
-        z = np.zeros(0, dtype=np.int32)
-        return InitHits(z, z, z, z, z, z, z, z)
-    n_tmpl = len(got[0][0])
-    with slog.time("device.seeding.finish"):
-        pieces = [(cols, sum(counts[:t]), counts[t])
-                  for t in range(n_tmpl) for counts, cols, _h in got]
-        col = {name: torch.cat([c[name][a: a + n] for c, a, n in pieces])
-               for name in got[0][1]}
-        heads = torch.stack([torch.stack(h) for _c, _cols, h in got])
-        head = [heads[:, 0].sum().to(torch.int32), heads[:, 1].amax(),
-                heads[:, 2].amax()]
-    slog.diagnostics.init_extends += int(col["q"].numel())
-    _escalate(sdb, dev, col, head, scan_kw)
+    if not col["q"].numel():
+        return _no_hits()
     seeds = (col["q"], col["ss"], col["ctx"], col["oid"])
     rows = (col["uq"], col["us"], col["ulen"], col["usc"])
     runs = col.get("runs")

@@ -994,3 +994,152 @@ def test_streamed_seeding_equals_resident_on_the_card(monkeypatch):
                                           getattr(want, field))
         assert not hasattr(b.stream.db, "_torch_resident")
     assert escalated["long read"] > 0, escalated
+
+
+def _hsp_rows(res):
+    """Every HSP of a search result, all fields (the edit script as a
+    list), in result order."""
+    def fields(h):
+        return tuple((k, list(v) if k == "edit_script" and v is not None
+                      else v) for k, v in vars(h).items())
+
+    return [(q.query_index, lst.oid, lst.best_evalue, fields(h))
+            for q in res.queries for lst in q.hsplists for h in lst.hsps]
+
+
+@pytest.mark.cuda
+def test_sharded_search_equals_resident_on_the_card(monkeypatch):
+    """At 4 shards, all on the one card, search() gives the resident
+    search's HSPs on tests/test_oracle_parity.py's off-diagonal workload
+    (one-hit blastn, two-hit megablast with RR, and -off_diagonal_range
+    4): K1 and G launch once a shard with seeds, R once a batch (none with
+    the scan range), K2 never, and no shard lies on the CPU. A shard whose
+    form and a search's working memory do not fit in the card's free
+    memory raises MemoryError naming both numbers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gblastn_tpu_torch import FastaRecord, SequenceDB
+    from gblastn_tpu_torch.engine import resident
+    from gblastn_tpu_torch.engine.search import search
+    from gblastn_tpu_torch.ops import gapped as og
+    from gblastn_tpu_torch.ops import replay as rp
+    from gblastn_tpu_torch.params.options import options_for_task
+    from gblastn_tpu_torch.tools.workloads import offdiag_reads
+    from gblastn_tpu_torch.utils.profiling import slog
+
+    dev = torch.device("cuda:0")
+    genome, reads = offdiag_reads()
+    recs = [FastaRecord(*r) for r in reads]
+    for task, kw in (("blastn", {}), ("megablast", {"window_size": 40}),
+                     ("blastn", {"window_size": 40,
+                                 "off_diagonal_range": 4})):
+        opts = options_for_task(task, evalue=1e-3, **kw)
+        monkeypatch.delenv("GBLASTN_TPU_SHARDS", raising=False)
+        want = _hsp_rows(search(recs, SequenceDB.from_records(
+            [FastaRecord("chr1", "", genome)]), opts, device=dev))
+        monkeypatch.setenv("GBLASTN_TPU_SHARDS", "4")
+        db = SequenceDB.from_records([FastaRecord("chr1", "", genome)])
+        counts = [ungapped_extend_window.launches, rp.approx_gate.launches,
+                  rp.diag_replay.launches, og.banded_gapped_scores.launches]
+        slog.reset()
+        got = _hsp_rows(search(recs, db, opts, device=dev))
+        counts = [c - b for c, b in zip(
+            (ungapped_extend_window.launches, rp.approx_gate.launches,
+             rp.diag_replay.launches, og.banded_gapped_scores.launches),
+            counts)]
+        assert got == want and len(want) >= 4, task
+        assert slog.values["seeding.shards"] == 4
+        assert 2 <= counts[0] <= 4 and counts[1] == counts[0]
+        assert counts[2] == (0 if kw.get("off_diagonal_range") else 1)
+        assert counts[3] == 0
+        assert all(v.device == dev for v in db._torch_shards.values()
+                   if isinstance(v, resident.ResidentDB))
+        assert not hasattr(db, "_torch_resident")
+    # a search's working memory as large as the card: no shard fits
+    monkeypatch.setattr(resident, "SEARCH_WORK_BYTES",
+                        torch.cuda.mem_get_info(dev)[1])
+    db = SequenceDB.from_records([FastaRecord("chr1", "", genome)])
+    with pytest.raises(MemoryError,
+                       match=r"shard 0 of 4 needs \d+ bytes.* \d+ free"):
+        search(recs, db, options_for_task("megablast"), device=dev)
+
+
+@pytest.mark.cuda
+def test_bare_cuda_shards_over_every_card():
+    """On a machine with several cards, a bare ``cuda`` batch shards the
+    database over all of them (GBLASTN_TPU_SHARDS unset): a shard a card,
+    HSPs equal to one card's resident search."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from gblastn_tpu_torch import FastaRecord, SequenceDB
+    from gblastn_tpu_torch.engine.resident import ResidentDB
+    from gblastn_tpu_torch.engine.search import search
+    from gblastn_tpu_torch.params.options import options_for_task
+    from gblastn_tpu_torch.tools.workloads import offdiag_reads
+
+    genome, reads = offdiag_reads()
+    genome = genome * 4            # four cards' worth of 13,312-base shards
+    recs = [FastaRecord(*r) for r in reads]
+    opts = options_for_task("blastn", evalue=1e-3, window_size=40)
+    want = _hsp_rows(search(recs, SequenceDB.from_records(
+        [FastaRecord("chr1", "", genome)]), opts, device="cuda:0"))
+    db = SequenceDB.from_records([FastaRecord("chr1", "", genome)])
+    got = _hsp_rows(search(recs, db, opts, device="cuda"))
+    assert got == want and len(want) >= 4
+    cards = {v.device for v in db._torch_shards.values()
+             if isinstance(v, ResidentDB)}
+    assert cards == {torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())}
+
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_on_their_own_cards(tmp_path):
+    """A process a card over gloo (GBLASTN_TPU_COORDINATOR, no
+    GBLASTN_TPU_SHARDS: a shard a process, each on its rank's card):
+    every rank writes the bytes of one process alone on one card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from gblastn_tpu_torch import FastaRecord, SequenceDB
+    from gblastn_tpu_torch.tools.workloads import offdiag_reads
+
+    genome, reads = offdiag_reads()
+    SequenceDB.from_records([FastaRecord("chr1", "", genome * 4)]).save(
+        tmp_path / "db")
+    (tmp_path / "q.fa").write_text("".join(f">{n}\n{s}\n"
+                                           for n, _t, s in reads))
+    args = [sys.executable, "-m", "gblastn_tpu_torch", "blastn", "-task",
+            "blastn", "-query", str(tmp_path / "q.fa"), "-db",
+            str(tmp_path / "db"), "-outfmt", "6", "-evalue", "1e-3"]
+    repo = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    env.pop("GBLASTN_TPU_SHARDS", None)
+    subprocess.run(args + ["-device", "cuda:0", "-out",
+                           str(tmp_path / "alone.tsv")],
+                   env=env, cwd=repo, check=True, timeout=600)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    n = torch.cuda.device_count()
+    procs = [subprocess.Popen(
+        args + ["-device", "cuda", "-out", str(tmp_path / f"rank{r}.tsv")],
+        cwd=repo, env={**env, "GBLASTN_TPU_COORDINATOR": f"localhost:{port}",
+                       "GBLASTN_TPU_NUM_PROCESSES": str(n),
+                       "GBLASTN_TPU_PROCESS_ID": str(r)})
+        for r in range(n)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert codes == [0] * n
+    want = (tmp_path / "alone.tsv").read_bytes()
+    assert want.count(b"\n") >= 4
+    for r in range(n):
+        assert (tmp_path / f"rank{r}.tsv").read_bytes() == want, r

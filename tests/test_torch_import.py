@@ -1,7 +1,7 @@
-"""gblastn_tpu_torch imports and searches (the off-diagonal replay and a
-streamed database among them) with ``jax``, ``gblastn_tpu``, ``bench``
-and ``chip_smoke`` blocked, and asking for a CUDA device without a card
-raises instead of falling back."""
+"""gblastn_tpu_torch imports and searches (the off-diagonal replay, a
+streamed and a sharded database among them) with ``jax``,
+``gblastn_tpu``, ``bench`` and ``chip_smoke`` blocked, and asking for a
+CUDA device without a card raises instead of falling back."""
 from __future__ import annotations
 
 import os
@@ -67,6 +67,17 @@ assert not hasattr(sdb, "_torch_resident")
 for name in ("GBLASTN_TPU_STREAM", "GBLASTN_TPU_BLOCK_BASES",
              "GBLASTN_TPU_BLOCK_HALO"):
     del os.environ[name]
+
+# the database sharded over three shards in one process (parallel.dist)
+os.environ["GBLASTN_TPU_SHARDS"] = "3"
+hdb = gblastn_tpu_torch.SequenceDB.from_records([FastaRecord("g", "", genome)])
+res = gblastn_tpu_torch.search(reads, hdb, gblastn_tpu_torch.blastn_options(),
+                               device="cpu")
+assert [(q.query_index, l.hsps[0].s_off, l.hsps[0].s_end)
+        for q in res.queries for l in q.hsplists] == [(0, 1000, 1300),
+                                                       (1, 5000, 5250)]
+assert hdb._torch_shards and not hasattr(hdb, "_torch_resident")
+del os.environ["GBLASTN_TPU_SHARDS"]
 
 # the pipelined mode and the repeat filter's module
 from gblastn_tpu_torch.engine.pipeline import run_pipelined_search
@@ -218,9 +229,10 @@ def test_sources_never_import_jax():
     assert len(files) > 50
     # the profilers are scanned too
     assert REPO / "gblastn_tpu_torch" / "tools" / "prof_scan_parts.py" in files
-    # and so are the pipelined mode, the repeat filter and the stream
+    # and so are the pipelined mode, the repeat filter, the stream and
+    # the sharding
     for mod in ("engine/pipeline.py", "masking/repeats.py",
-                "engine/stream.py"):
+                "engine/stream.py", "parallel/dist.py"):
         assert REPO / "gblastn_tpu_torch" / mod in files, mod
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(), 1):

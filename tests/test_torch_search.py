@@ -231,18 +231,18 @@ def test_cli_outfmt6_bytes_match_jax(workload, blastn_workload, tmp_path,
 
 
 def test_outside_the_slice_refuses(workload, monkeypatch):
-    """Only sharding (item 14) stays outside the port; two-hit seeding
-    with -off_diagonal_range (tests/test_torch_offdiag.py), -use_index
-    and the database masks run (tests/test_torch_dbindex.py,
-    test_torch_dbmask.py)."""
+    """Nothing is outside the port any more: two-hit seeding with
+    -off_diagonal_range (tests/test_torch_offdiag.py), and sharding
+    (GBLASTN_TPU_SHARDS=2, tests/test_torch_dist.py) searches and gives
+    the unsharded run's HSPs."""
     db, reads = workload["db"], workload["reads"]
     for options in (blastn_options(window_size=40, off_diagonal_range=2),
                     options_for_task("dc-megablast", off_diagonal_range=1)):
         assert torch_search(reads[:1], db, options, device="cpu").queries
+    want = _rows(torch_search(reads, db, megablast_options(), device="cpu"))
     monkeypatch.setenv("GBLASTN_TPU_SHARDS", "2")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 14"):
-        torch_search(reads[:1], db, megablast_options(), device="cpu")
+    got = _rows(torch_search(reads, db, megablast_options(), device="cpu"))
+    assert got == want and len(want) >= 7
 
 
 @pytest.mark.parametrize("value", ["x", ""])
